@@ -1,12 +1,10 @@
 // Native serving-response assembler: the per-request wire path
 // (engine.hydrate_row_json) in one GIL-released call.
 //
-// Motivation (round-3 profile, experiments/hydration_only_profile.py): the
-// Python fragment-cache fast path still costs ~0.52 ms per request — 150
-// tiny json.dumps calls + f-string assembly per top-50 response — which on
-// the 1-core serving host caps the end-to-end HTTP benchmark at <1k QPS
-// even though the device scorer sustains >3k. Here the whole response is
-// assembled natively from a generation-tagged per-doc store:
+// Motivation: the Python fragment-cache fast path costs ~150 tiny
+// json.dumps calls + f-string assembly per top-50 response, which makes
+// the host, not the device scorer, the serving wall. Here the whole
+// response is assembled natively from a generation-tagged per-doc store:
 //
 //   response = "[" + join(",",
 //       frag(doc) + ',"Summary":' + json(summary(doc, query))

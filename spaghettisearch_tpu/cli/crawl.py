@@ -39,7 +39,7 @@ def _bool(v: str) -> bool:
 
 def main(argv: list[str] | None = None) -> None:
     enable_persistent_cache()
-    ap = argparse.ArgumentParser(description="SpaghettiSearch-TPU crawler")
+    ap = argparse.ArgumentParser(description="SpaghettiSearch crawler")
     ap.add_argument("--numPages", type=int, default=CRAWL_DEFAULT_PAGES)
     ap.add_argument("--startURL", default=CRAWL_DEFAULT_START)
     ap.add_argument("--domainOnly", type=_bool, default=CRAWL_DEFAULT_DOMAIN_ONLY)

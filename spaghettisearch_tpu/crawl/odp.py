@@ -25,8 +25,6 @@ import asyncio
 from dataclasses import dataclass, field
 from urllib.parse import urljoin, urlsplit
 
-from lxml import html as lxml_html
-
 from ..store.tables import Database
 from ..text.page import parse_page
 from ..utils.hashing import md5_hex
@@ -40,6 +38,9 @@ class TopicData:
 
 
 def _dom(body: bytes):
+    # lxml is needed only by the ODP topic scraper, never by serving
+    from lxml import html as lxml_html
+
     try:
         return lxml_html.fromstring(body)
     except Exception:

@@ -2,7 +2,7 @@
 
 The store is the durable source of truth (checkpoint/resume semantics match
 the reference, SURVEY §5); snapshots are derived artifacts, persisted so a
-serving process can map the columnar arrays straight into HBM without
+serving process can place the columnar arrays on the device without
 re-walking the store (.npz for arrays + JSON sidecar for hashes/categories).
 """
 

@@ -1,8 +1,8 @@
 """Columnar index snapshots: the device-resident form of the inverted index.
 
 The reference keeps postings as JSON rows in an LSM tree and walks them
-row-at-a-time with goroutines (database/database.go, retrieval/). The
-TPU-native representation is padded CSR in HBM:
+row-at-a-time with goroutines (database/database.go, retrieval/). Here the
+representation is padded CSR in device memory:
 
 per section (title/body):
   post_offsets  int32 [V+1]   postings range per word_id
@@ -110,10 +110,10 @@ class SectionCSR:
         """Doc-major ("forward") view: per-doc term ids + weights.
 
         -> (ft int32 [D, T_pad] with -1 padding, fw f32 [D, T_pad]).
-        This is the layout the TPU keyword scorer consumes: scoring becomes a
+        This is the layout the keyword scorer consumes: scoring becomes a
         dense compare/weighted-reduce over [B, D, T] with no scatter/gather
-        (ops/scoring.py), which measures ~200x faster than scatter-add on
-        TPU. T_pad is the max distinct terms of any doc, rounded up."""
+        (ops/scoring.py, ops/kernels/membership.py). T_pad is the max
+        distinct terms of any doc, rounded up."""
         ft, fw, _ = self.forward_with_postings(n_docs)
         return ft, fw
 
@@ -122,13 +122,13 @@ class SectionCSR:
     ) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
         """forward() plus fj int32 [D, T_pad]: each doc-term's global posting
         index into this CSR (pad slots point at the CSR's always-empty final
-        pad posting), used by the phrase kernel to jump from a matched
+        pad posting), used by the phrase matcher to jump from a matched
         doc-term straight to its position list.
 
         doc_term_cap bounds T_pad: forward-array memory scales with the
         LONGEST document's distinct-term count, so one pathological page
-        (tens of thousands of distinct words) would otherwise multiply HBM
-        use for the whole corpus. Docs past the cap keep only their
+        (tens of thousands of distinct words) would otherwise multiply device
+        memory use for the whole corpus. Docs past the cap keep only their
         top-cap terms by weight in the DENSE view (logged); the CSR stays
         complete, so the parity-oracle scatter path remains exact. Pass
         None for the exact (unbounded) dense view."""
@@ -443,8 +443,8 @@ def slice_snapshot(snap: IndexSnapshot, n_keep: int) -> IndexSnapshot:
     exactly the doc range shard 0 of a contiguous doc-sharded mesh serves
     (parallel/sharded.py ShardedIndex.from_snapshot), with the GLOBAL term
     weights baked into the postings kept as-is. Built for shard-scale
-    device measurements on a single chip (experiments/shard_scale_probe.py)
-    and shard-local tooling; per-doc scores equal the full snapshot's."""
+    measurements on a single device and shard-local tooling; per-doc scores
+    equal the full snapshot's."""
     n_keep = min(n_keep, snap.n_docs)
     kept_hashes = snap.doc_hashes[:n_keep]
     return IndexSnapshot(

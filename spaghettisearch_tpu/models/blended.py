@@ -46,7 +46,7 @@ class BlendedRanker:
         bn = bs / (mag_b[None, :] * qmag)
         tn = jnp.where(jnp.isnan(tn), 0.0, tn)
         bn = jnp.where(jnp.isnan(bn), 0.0, bn)
-        sqd = jnp.dot(topic_probs, pagerank.T, preferred_element_type=jnp.float32)
+        sqd = _scoring.topic_dot(topic_probs, pagerank)
         final = (self.w_pagerank * sqd + self.w_title * tn + self.w_body * bn) * self.scale
         return jnp.where(tc + bc > 0, final, -jnp.inf)
 
@@ -84,19 +84,16 @@ class BlendedRanker:
     ):
         """Keyword batch -> (scores [B,K], doc ids [B,K]) on device. qn is
         the per-row active term count (batch sorted descending by it): the
-        kernel skips compare sweeps past each 8-query block's max."""
+        kernel skips compare sweeps past each row block's max."""
         k = min(topk or self.topk, index.n_docs) or 1
         if self.is_reference_blend():
-            # measured on-chip: the 2-kernel + XLA-finalize composition beats
-            # the fully-fused kernel (12.1 vs 15.7 ms/256-batch on 100k docs)
-            # — see ops/kernels/fused.py; keep the unfused production path
             qnb, hot_sids, hot_w = self._hot_args(index, term_ids, qn, qnb, hot_sids)
             return _scoring.score_queries_forward(
                 index.title.fwd, index.body.fwd,
                 index.mag_title, index.mag_body, index.pagerank,
                 term_ids, qlen, topic_probs, qn, qnb, hot_sids, hot_w,
                 index.body.tmax_blocks, index.doc_perm, topk=k,
-                use_pallas=_scoring.pallas_available(),
+                use_kernel=_scoring.use_gpu_kernel(),
                 emit_counts=index.has_zero_weight,
             )
         return self._custom_forward(index, term_ids, qlen, topic_probs, k)
@@ -115,7 +112,7 @@ class BlendedRanker:
                 term_ids, qlen, topic_probs,
                 ph_docs, ph_tw, ph_bw, ph_fl, qn, qnb, hot_sids, hot_w,
                 index.body.tmax_blocks, index.doc_perm, topk=k,
-                use_pallas=_scoring.pallas_available(),
+                use_kernel=_scoring.use_gpu_kernel(),
                 emit_counts=index.has_zero_weight,
             )
         return self._custom_forward(
@@ -133,8 +130,8 @@ class BlendedRanker:
         ph_ids, ph_valid, topk=None, qn=None, pn=None,
         qnb=None, hot_sids=None,
     ):
-        """Fused keyword+phrase lane: ONE device program per mixed batch
-        (dense phrase matching in-kernel, ops/kernels/mixed.py)."""
+        """Mixed keyword+phrase lane: ONE device program per mixed batch
+        (dense phrase matching, ops/kernels/mixed.py)."""
         k = min(topk or self.topk, index.n_docs) or 1
         qnb, hot_sids, hot_w = self._hot_args(index, term_ids, qn, qnb, hot_sids)
         return _scoring.score_queries_mixed(
@@ -142,15 +139,9 @@ class BlendedRanker:
             index.title.posT, index.body.posT,
             index.mag_title, index.mag_body, index.pagerank,
             term_ids, qlen, topic_probs, ph_ids, ph_valid, qn, pn,
-            qnb, hot_sids, hot_w, index.doc_perm,
-            # NO body_tmax: the dynamic-T body sweep that buys 37% on the
-            # keyword kernels REGRESSES the mixed kernel (same-day 1M probe:
-            # static 95.1 -> dynamic 101.7 ms/128-batch; 100k neutral) — the
-            # ref-chunked fori body fights the posT stream for VMEM, the
-            # same scheduling cliff the q=3 level hit (FINDINGS round 3)
-            None,
+            qnb, hot_sids, hot_w, index.doc_perm, index.body.tmax_blocks,
             topk=k,
-            use_pallas=_scoring.pallas_available(),
+            use_kernel=_scoring.use_gpu_kernel(),
             emit_counts=index.has_zero_weight,
         )
 
@@ -240,7 +231,7 @@ def _custom_score(
     bn = bs / (mag_b[None, :] * qmag)
     tn = jnp.where(jnp.isnan(tn), 0.0, tn)
     bn = jnp.where(jnp.isnan(bn), 0.0, bn)
-    sqd = jnp.dot(topic_probs, pagerank.T, preferred_element_type=jnp.float32)
+    sqd = _scoring.topic_dot(topic_probs, pagerank)
     final = (weights[0] * sqd + weights[1] * tn + weights[2] * bn) * weights[3]
     final = jnp.where(tc + bc > 0, final, -jnp.inf)
     return _scoring.exact_top_k(final, topk, doc_map=doc_map)

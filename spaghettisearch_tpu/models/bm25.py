@@ -11,7 +11,7 @@ doc length is the per-doc tf sum, so the full BM25 weight
 
 is PRECOMPUTED per posting at prepare time. Scoring then reuses the exact
 same forward-membership machinery as the blended model (dense compare +
-weighted reduce; Pallas kernel on TPU), and phrase matching reuses
+weighted reduce; the Triton kernel on the GPU), and phrase matching reuses
 match_phrase_fwd with the BM25 weight arrays swapped in — the matcher just
 sums the weights of matched postings.
 
@@ -122,8 +122,8 @@ class BM25Ranker:
         # BM25 weights are strictly positive (idf = ln(x+1) > 0, tf term
         # > 0), so count accumulation is always elidable
         return _scoring._both_section_scores(
-            self._fwd["title"], self._fwd["body"], term_ids, 16,
-            _scoring.pallas_available(), qn, emit_counts=False,
+            self._fwd["title"], self._fwd["body"], term_ids,
+            _scoring.use_gpu_kernel(), qn, emit_counts=False,
         )
 
     def score_keywords(self, index, term_ids, qlen, topic_probs, topk=None, qn=None):

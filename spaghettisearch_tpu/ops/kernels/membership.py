@@ -1,34 +1,38 @@
-"""Pallas TPU kernel for forward-membership scoring.
+"""Forward-membership keyword sweep: a Pallas kernel through Triton.
 
-Computes, for one section and a query batch,
+For one query batch and both index sections it computes
 
     mult[b, d, j]  = #occurrences of ft[d, j] among query b's terms
     score[b, d]    = sum_j fw[d, j] * mult[b, d, j]
     count[b, d]    = sum_j mult[b, d, j]
 
-The XLA formulation (ops/scoring.py forward_section_scores) materializes the
-[B, Db, T] compare intermediates through HBM; here the forward-index tile
-([T, Db], term axis on sublanes, doc axis on 128-wide lanes) is loaded into
-VMEM once per doc block and reused across the whole query batch, with the
-compare/accumulate kept on-chip.
+The XLA formulation (ops/scoring.py forward_section_scores) evaluates the
+same sums block by block through device memory. Here each program owns one
+[ROW_BLOCK, DOC_TILE] output tile: it reads the [T, DOC_TILE] slice of the
+transposed forward index (ftT/fwT, doc axis contiguous) once, row by row,
+and keeps the compare-and-accumulate in registers. It is ALU and bandwidth
+work with no matrix product, so there is no tensor-core or TF32 question.
 
-Layout: the index is passed TRANSPOSED (ftT/fwT [T, D]) so the doc axis is
-the lane axis; T must be a multiple of 8 and D a multiple of the doc block
-(the DeviceIndex pads both).
+Grid: (doc tiles, query-row blocks). Each program loads its own bounds:
 
-Two round-2 optimizations (both exact):
+- the row block's active-term counts (qn for the title sweep, qnb for the
+  body sweep) bound the inner loop over query slots: batches are sorted by
+  term count (engine.rank), so 1-2 term rows stop paying for padded slots;
+- under the doc-sorted layout (DeviceIndex doc_sort) the doc block's real
+  max distinct-term count (body_tmax) bounds the body term loop: docs are
+  sorted by term count, so blocks are T-homogeneous and the sweep stops at
+  the block's longest doc. Skipped rows hold only pad slots, so the bound is
+  exact.
 
-- **per-block dynamic q**: real queries have 1-4 keywords but the batch is
-  padded to Q slots; with the batch sorted by term count (engine.rank), the
-  kernel reads each 8-query block's true max term count from an SMEM array
-  and runs the compare loop only that far. The reference pays per-term cost
-  the same way (one goroutine per term, main_retrieve.go:50-78); a fixed-Q
-  scan would be paying for phantom terms.
-- **count elision** (emit_counts=False): when every index weight is > 0
-  (no df==N idf-zero postings — DeviceIndex.has_zero_weight), candidacy
-  is equivalent to score > 0, so the count accumulate and its two [B, D]
-  HBM outputs are dropped. The exact 4-output variant remains for indexes
-  with zero weights.
+Count elision (emit_counts=False): when every index weight is > 0 (no
+df==N idf-zero postings, DeviceIndex.has_zero_weight), candidacy is
+equivalent to score > 0, so the count accumulators and their [B, D]
+outputs are dropped.
+
+Hot split (qnb): a row's cold terms sit in slots [0, qnb) and its hot terms
+after them; the title sweep reads every active slot, the body sweep only
+the cold ones (the hot terms' body weight comes from the caller's dense
+hot_body_scores product).
 """
 
 from __future__ import annotations
@@ -38,305 +42,157 @@ import functools
 import jax
 import jax.numpy as jnp
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plt
+
+#: query rows per program; a power of two (Triton block shapes)
+ROW_BLOCK = 16
+#: docs per program; a power of two dividing the index's DOC_BLOCK (512),
+#: so one tile never straddles two body_tmax blocks
+DOC_TILE = 128
+NUM_WARPS = 4
+NUM_STAGES = 2
+
+_SENTINEL = jnp.iinfo(jnp.int32).max  # a pad term id no ft slot holds
 
 
-def _q_levels(q: int) -> list[int]:
-    """Specialization levels up to q: 1, 2, 3, then powers of two (plus q
-    itself). Level 3 is load-bearing for the KEYWORD kernels — 3-keyword
-    queries are ~30% of the df-weighted bench mix and were paying the q=4
-    sweep (a 4th phantom compare pass over the whole [T, D] forward index
-    per 8-query block; 1M membership 85.5 -> 79.2 ms, probe1m_decomp.py).
-    The MIXED kernel must NOT use this set (see _q_levels_pow2)."""
-    levels = []
-    lev = 1
-    while lev < q:
-        levels.append(lev)
-        if lev == 2 and q > 3:
-            levels.append(3)
-        lev *= 2
-    levels.append(q)
-    return levels
+def _pow2(n: int) -> int:
+    p = 1
+    while p < n:
+        p *= 2
+    return p
 
 
-def _q_levels_pow2(q: int) -> list[int]:
-    """Power-of-two levels only — the MIXED kernel's set. Its emit bodies
-    coexist with the phrase stage's posT streaming in Mosaic's scoped
-    VMEM, and the extra q=3 bodies pushed it over a scheduling cliff:
-    mixed 128-batch at 100k went 44 -> 59 ms/batch with the 4-level chain
-    and back to 40 with pow2 (measured on-chip, round 3)."""
-    levels = []
-    lev = 1
-    while lev < q:
-        levels.append(lev)
-        lev *= 2
-    levels.append(q)
-    return levels
+def _sweep(ft_ref, fw_ref, tq_ref, nq, t_hi, emit_counts: bool):
+    """One section's (score, count) tile: term rows [0, t_hi) of the
+    [T, DOC_TILE] index slice against query slots [0, nq) of the row
+    block's [Q, ROW_BLOCK] term tile."""
+    zeros = jnp.zeros((ROW_BLOCK, DOC_TILE), jnp.float32)
 
+    def t_body(t, acc):
+        ft = ft_ref[t, :]  # [DOC_TILE]
+        fw = fw_ref[t, :]
 
-def _section_scores_unrolled(ft, fw, tq, q_eff, emit_counts):
-    """One section's (score, count) with the compare loop fully unrolled to
-    q_eff steps — straight-line vector code, no carried control flow (a
-    per-step scf.if carry was measured 3.5x slower, experiments/ab_kernel)."""
-    mult = jnp.zeros((tq.shape[0],) + ft.shape, jnp.float32)
-    for qi in range(q_eff):
-        t = tq[:, qi][:, None, None]  # [Bb, 1, 1]
-        mult = mult + (ft[None, :, :] == t).astype(jnp.float32)
-    score = jnp.sum(mult * fw[None, :, :], axis=1)
-    if not emit_counts:
-        return score, None
-    return score, jnp.sum(mult, axis=1)
+        def q_body(q, mult):
+            tq = tq_ref[q, :]  # [ROW_BLOCK]
+            return mult + (ft[None, :] == tq[:, None]).astype(jnp.float32)
 
+        mult = jax.lax.fori_loop(0, nq, q_body, zeros)
+        score = acc[0] + mult * fw[None, :]
+        if not emit_counts:
+            return (score,)
+        return score, acc[1] + mult
 
-def _dispatch_q(nq, q, emit, levels=None):
-    """Run emit(q_eff) for the level covering nq. Each level is an
-    independent straight-line body behind one scalar branch per 8-query
-    block; with the batch sorted by term count, blocks are homogeneous and
-    1-2 term queries stop paying for phantom Q-pad compare sweeps."""
-    if levels is None:
-        levels = _q_levels(q)
-    lo = -1  # level 1 also covers nq == 0 (all-pad blocks: sentinel terms)
-    for lev in levels:
-        cond = (nq > lo) & (nq <= lev) if lev != levels[-1] else nq > lo
-        pl.when(cond)(lambda lev=lev: emit(lev))
-        lo = lev
+    init = (zeros, zeros) if emit_counts else (zeros,)
+    return jax.lax.fori_loop(0, t_hi, t_body, init)
 
 
 def _kernel(
-    qn_ref, tq_ref, ft_ref, fw_ref, *out_refs, b_block: int, q: int,
-    emit_counts: bool,
+    qn_ref, qnb_ref, tmax_ref, tq_ref, btq_ref,
+    tft_ref, tfw_ref, bft_ref, bfw_ref, *out_refs,
+    emit_counts: bool, tiles_per_tmax: int,
 ):
-    ft = ft_ref[:]  # [T, Db] int32
-    fw = fw_ref[:]  # [T, Db] f32
-    b_total = tq_ref.shape[0]
-
-    def b_body(bi, _):
-        row = bi * b_block
-        tq = tq_ref[pl.ds(row, b_block), :]  # [Bb, Q]
-
-        def emit(q_eff):
-            score, count = _section_scores_unrolled(ft, fw, tq, q_eff, emit_counts)
-            out_refs[0][pl.ds(row, b_block), :] = score
-            if emit_counts:
-                out_refs[1][pl.ds(row, b_block), :] = count
-
-        _dispatch_q(qn_ref[bi], q, emit)
-        return 0
-
-    jax.lax.fori_loop(0, b_total // b_block, b_body, 0)
-
-
-def _kernel2(
-    qn_ref, qnb_ref, *rest, b_block: int, q: int, emit_counts: bool,
-    tc: int | None = None,
-):
-    """Two sections, one grid sweep. The body sweep has its OWN term tile
-    (btq) and per-block count (qnb): with the hot-term split active, btq
-    holds only the cold slots (hot slots sentinel-masked) so hot terms'
-    body contribution comes solely from the caller's dense matmul; with
-    the split inactive the caller passes btq=tq, qnb=qn and this matches
-    the previous shared-tile kernel exactly.
-
-    With tc set (doc-sorted layout, DeviceIndex doc_sort), the BODY sweep
-    becomes a dynamic-trip fori over tc-row term chunks bounded by this doc
-    block's real max distinct-term count (SMEM tmaxb, indexed by program
-    id): docs are sorted by term count so blocks are T-homogeneous and the
-    sweep stops paying for pad rows past the block's longest doc (~30% of
-    the dominant body compare cost at 1M docs, experiments/tbound_probe.py).
-    The title sweep stays static — Tt is tiny."""
-    if tc is None:
-        tmaxb_ref = None
-        tq_ref, btq_ref, tft_ref, tfw_ref, bft_ref, bfw_ref, *out_refs = rest
-    else:
-        tmaxb_ref, tq_ref, btq_ref, tft_ref, tfw_ref, bft_ref, bfw_ref, *out_refs = rest
-    tft = tft_ref[:]
-    tfw = tfw_ref[:]
-    if tc is None:
-        bft = bft_ref[:]
-        bfw = bfw_ref[:]
-        trips = None
-    else:
-        db = bft_ref.shape[1]
-        trips = (tmaxb_ref[pl.program_id(0)] + (tc - 1)) // tc
-
-    def b_body(bi, _):
-        row = bi * b_block
-        tq = tq_ref[pl.ds(row, b_block), :]
-        btq = btq_ref[pl.ds(row, b_block), :]
-
-        def emit_t(q_eff):
-            s, c = _section_scores_unrolled(tft, tfw, tq, q_eff, emit_counts)
-            out_refs[0][pl.ds(row, b_block), :] = s
-            if emit_counts:
-                out_refs[1][pl.ds(row, b_block), :] = c
-
-        def emit_b(q_eff):
-            s, c = _section_scores_unrolled(bft, bfw, btq, q_eff, emit_counts)
-            if emit_counts:
-                out_refs[2][pl.ds(row, b_block), :] = s
-                out_refs[3][pl.ds(row, b_block), :] = c
-            else:
-                out_refs[1][pl.ds(row, b_block), :] = s
-
-        def emit_b_tb(q_eff):
-            def t_body(ti, carry):
-                s, c = carry
-                ftc = bft_ref[pl.ds(ti * tc, tc), :]
-                fwc = bfw_ref[pl.ds(ti * tc, tc), :]
-                mult = jnp.zeros((b_block, tc, db), jnp.float32)
-                for qi in range(q_eff):
-                    t = btq[:, qi][:, None, None]
-                    mult = mult + (ftc[None, :, :] == t).astype(jnp.float32)
-                s = s + jnp.sum(mult * fwc[None, :, :], axis=1)
-                if emit_counts:
-                    c = c + jnp.sum(mult, axis=1)
-                return s, c
-
-            zeros = jnp.zeros((b_block, db), jnp.float32)
-            s, c = jax.lax.fori_loop(0, trips, t_body, (zeros, zeros))
-            if emit_counts:
-                out_refs[2][pl.ds(row, b_block), :] = s
-                out_refs[3][pl.ds(row, b_block), :] = c
-            else:
-                out_refs[1][pl.ds(row, b_block), :] = s
-
-        _dispatch_q(qn_ref[bi], q, emit_t)
-        _dispatch_q(qnb_ref[bi], q, emit_b if tc is None else emit_b_tb)
-        return 0
-
-    jax.lax.fori_loop(0, tq_ref.shape[0] // b_block, b_body, 0)
-
-
-def _qn_blocks(term_ids, qn, b_block):
-    """Per-8-query-block max active term count, i32 [B//b_block] (SMEM)."""
-    b, q = term_ids.shape
-    if qn is None:
-        return jnp.full((b // b_block,), q, jnp.int32)
-    return jnp.clip(qn.reshape(b // b_block, b_block).max(axis=1), 0, q).astype(
-        jnp.int32
+    rb = pl.program_id(1)
+    title = _sweep(tft_ref, tfw_ref, tq_ref, qn_ref[rb], tft_ref.shape[0],
+                   emit_counts)
+    t_hi = jnp.minimum(
+        tmax_ref[pl.program_id(0) // tiles_per_tmax], bft_ref.shape[0]
     )
+    body = _sweep(bft_ref, bfw_ref, btq_ref, qnb_ref[rb], t_hi, emit_counts)
+    for ref, val in zip(out_refs, title + body):
+        ref[...] = val
 
 
-#: body term-chunk rows for the doc-sorted dynamic-T sweep; 32 beat 16 by
-#: ~9% at 1M-doc shapes (fewer loop trips outweigh coarser T granularity,
-#: experiments/tbound_probe.py: 43.4 vs 47.5 ms, static baseline 68.6)
-TBOUND_TC = 32
+def _row_block_max(n: jax.Array, q: int) -> jax.Array:
+    """Per-row-block max active slot count, i32 [B // ROW_BLOCK]."""
+    return jnp.clip(n.reshape(-1, ROW_BLOCK).max(axis=1), 0, q).astype(jnp.int32)
 
 
 @functools.partial(
-    jax.jit,
-    static_argnames=("doc_block", "b_block", "emit_counts", "interpret", "tc"),
+    jax.jit, static_argnames=("emit_counts", "tmax_block", "interpret")
 )
-def pallas_forward_scores_2sec(
-    title_ftT: jax.Array,  # int32 [Tt, D]
-    title_fwT: jax.Array,
+def keyword_scores_2sec(
+    title_ftT: jax.Array,  # int32 [Tt, D] (transposed forward index, -1 pad)
+    title_fwT: jax.Array,  # f32 [Tt, D]
     body_ftT: jax.Array,  # int32 [Tb, D]
     body_fwT: jax.Array,
-    term_ids: jax.Array,  # int32 [B, Q]; B % b_block == 0
-    qn: jax.Array | None = None,  # i32 [B] active term counts (sorted desc!)
+    term_ids: jax.Array,  # int32 [B, Q]; unused slots hold a sentinel
+    qn: jax.Array | None = None,  # i32 [B] active slots (batch sorted desc)
     *,
-    doc_block: int = 512,
-    b_block: int = 8,
     emit_counts: bool = True,
+    qnb: jax.Array | None = None,  # i32 [B] cold slots (hot split)
+    body_tmax: jax.Array | None = None,  # i32 [D // tmax_block] (doc-sorted)
+    tmax_block: int = 512,
     interpret: bool = False,
-    qnb: jax.Array | None = None,  # i32 [B] cold-term counts (hot split)
-    body_tmax: jax.Array | None = None,  # i32 [D//doc_block] (doc-sorted)
-    tc: int = TBOUND_TC,
 ):
-    """Both sections in ONE kernel pass (shared grid sweep):
-    -> (title score, title count, body score, body count), each [B, D];
-    counts are None when emit_counts=False (candidacy <=> score > 0, valid
-    iff every index weight is positive). ~5% over two separate passes on
-    the 100k headline shapes. With qnb (hot-term split, cold slots first)
-    the body sweep reads a sentinel-masked term tile bounded by qnb.
-    With body_tmax (per-doc-block max distinct body terms, doc-sorted
-    layout — DeviceIndex doc_sort) the body sweep runs a dynamic-trip
-    chunked loop instead of the full static Tb; requires Tb % tc == 0."""
+    """-> (title score, title count, body score, body count), each [B, D];
+    the counts are None when emit_counts=False. Any B and D: the batch is
+    padded to ROW_BLOCK rows (pad rows get the sentinel and no active
+    slots) and the doc axis to DOC_TILE columns, and both are sliced off."""
     from ..scoring import mask_cold
 
-    tt, d = title_ftT.shape
-    tb = body_ftT.shape[0]
     b, q = term_ids.shape
-    assert d % doc_block == 0 and b % b_block == 0, (d, doc_block, b, b_block)
-    if body_tmax is not None:
-        assert tb % tc == 0, (tb, tc)
-    body_tq = mask_cold(term_ids, qnb) if qnb is not None else term_ids
-    qnb_eff = qnb if qnb is not None else qn
+    d = title_ftT.shape[1]
+    if qn is None:
+        qn = jnp.full((b,), q, jnp.int32)
+    if qnb is None:
+        qnb, body_tq = qn, term_ids
+    else:
+        body_tq = mask_cold(term_ids, qnb)
+
+    b_pad = -(-b // ROW_BLOCK) * ROW_BLOCK
+    q_pad = _pow2(q)
+    d_pad = -(-d // DOC_TILE) * DOC_TILE
+
+    def rows(x, fill):
+        return jnp.pad(x, ((0, b_pad - b), (0, q_pad - q)), constant_values=fill)
+
+    def docs(x, fill):
+        return x if d_pad == d else jnp.pad(
+            x, ((0, 0), (0, d_pad - d)), constant_values=fill)
+
+    # term tiles go in transposed ([Q, B]): one query slot is then a
+    # contiguous ROW_BLOCK vector
+    tqT = rows(term_ids, _SENTINEL).T
+    btqT = rows(body_tq, _SENTINEL).T
+    qn_b = _row_block_max(jnp.pad(qn.astype(jnp.int32), (0, b_pad - b)), q)
+    qnb_b = _row_block_max(jnp.pad(qnb.astype(jnp.int32), (0, b_pad - b)), q)
+    tt, tb = title_ftT.shape[0], body_ftT.shape[0]
+
+    if body_tmax is None:  # one bound for every tile: the full sweep
+        body_tmax, tiles_per_tmax = jnp.full((1,), tb, jnp.int32), d_pad // DOC_TILE
+    else:
+        assert tmax_block % DOC_TILE == 0, (tmax_block, DOC_TILE)
+        tiles_per_tmax = tmax_block // DOC_TILE
     kernel = functools.partial(
-        _kernel2, b_block=b_block, q=q, emit_counts=emit_counts,
-        tc=None if body_tmax is None else tc,
+        _kernel, emit_counts=emit_counts, tiles_per_tmax=tiles_per_tmax
     )
     n_out = 4 if emit_counts else 2
-    tmax_spec = (
-        [] if body_tmax is None else [pl.BlockSpec(memory_space=pltpu.SMEM)]
-    )
-    tmax_arg = [] if body_tmax is None else [body_tmax]
     out = pl.pallas_call(
         kernel,
-        grid=(d // doc_block,),
+        grid=(d_pad // DOC_TILE, b_pad // ROW_BLOCK),
         in_specs=[
-            pl.BlockSpec(memory_space=pltpu.SMEM),
-            pl.BlockSpec(memory_space=pltpu.SMEM),
-            *tmax_spec,
-            pl.BlockSpec((b, q), lambda i: (0, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((b, q), lambda i: (0, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((tt, doc_block), lambda i: (0, i), memory_space=pltpu.VMEM),
-            pl.BlockSpec((tt, doc_block), lambda i: (0, i), memory_space=pltpu.VMEM),
-            pl.BlockSpec((tb, doc_block), lambda i: (0, i), memory_space=pltpu.VMEM),
-            pl.BlockSpec((tb, doc_block), lambda i: (0, i), memory_space=pltpu.VMEM),
+            pl.no_block_spec,  # per-row-block qn bounds
+            pl.no_block_spec,  # per-row-block qnb bounds
+            pl.no_block_spec,  # per-doc-block body T bounds
+            pl.BlockSpec((q_pad, ROW_BLOCK), lambda i, j: (0, j)),
+            pl.BlockSpec((q_pad, ROW_BLOCK), lambda i, j: (0, j)),
+            pl.BlockSpec((tt, DOC_TILE), lambda i, j: (0, i)),
+            pl.BlockSpec((tt, DOC_TILE), lambda i, j: (0, i)),
+            pl.BlockSpec((tb, DOC_TILE), lambda i, j: (0, i)),
+            pl.BlockSpec((tb, DOC_TILE), lambda i, j: (0, i)),
         ],
-        out_specs=[
-            pl.BlockSpec((b, doc_block), lambda i: (0, i), memory_space=pltpu.VMEM)
-        ] * n_out,
-        out_shape=[jax.ShapeDtypeStruct((b, d), jnp.float32)] * n_out,
-        compiler_params=pltpu.CompilerParams(dimension_semantics=("parallel",)),
+        out_specs=[pl.BlockSpec((ROW_BLOCK, DOC_TILE), lambda i, j: (j, i))] * n_out,
+        out_shape=[jax.ShapeDtypeStruct((b_pad, d_pad), jnp.float32)] * n_out,
+        backend="triton",
+        compiler_params=plt.CompilerParams(
+            num_warps=NUM_WARPS, num_stages=NUM_STAGES
+        ),
         interpret=interpret,
-    )(_qn_blocks(term_ids, qn, b_block), _qn_blocks(term_ids, qnb_eff, b_block),
-      *tmax_arg, term_ids, body_tq, title_ftT, title_fwT, body_ftT, body_fwT)
+        name="keyword_sweep",
+    )(qn_b, qnb_b, body_tmax.astype(jnp.int32), tqT, btqT,
+      docs(title_ftT, -1), docs(title_fwT, 0.0),
+      docs(body_ftT, -1), docs(body_fwT, 0.0))
+    out = [o[:b, :d] for o in out]
     if emit_counts:
         return out[0], out[1], out[2], out[3]
     return out[0], None, out[1], None
-
-
-@functools.partial(
-    jax.jit, static_argnames=("doc_block", "b_block", "emit_counts", "interpret")
-)
-def pallas_forward_scores(
-    ftT: jax.Array,  # int32 [T, D] (transposed forward index, -1 pad)
-    fwT: jax.Array,  # f32 [T, D]
-    term_ids: jax.Array,  # int32 [B, Q]; B % b_block == 0
-    qn: jax.Array | None = None,
-    *,
-    doc_block: int = 2048,
-    b_block: int = 8,
-    emit_counts: bool = True,
-    interpret: bool = False,
-):
-    """-> (score [B, D], count [B, D] | None)."""
-    t, d = ftT.shape
-    b, q = term_ids.shape
-    assert d % doc_block == 0 and b % b_block == 0, (d, doc_block, b, b_block)
-    grid = (d // doc_block,)
-    kernel = functools.partial(_kernel, b_block=b_block, q=q, emit_counts=emit_counts)
-    n_out = 2 if emit_counts else 1
-    out = pl.pallas_call(
-        kernel,
-        grid=grid,
-        # doc blocks are independent: lets Mosaic split the grid across the
-        # chip's TensorCores (megacore) — measured ~5% on the 100k bench
-        compiler_params=pltpu.CompilerParams(dimension_semantics=("parallel",)),
-        in_specs=[
-            pl.BlockSpec(memory_space=pltpu.SMEM),
-            pl.BlockSpec((b, q), lambda i: (0, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((t, doc_block), lambda i: (0, i), memory_space=pltpu.VMEM),
-            pl.BlockSpec((t, doc_block), lambda i: (0, i), memory_space=pltpu.VMEM),
-        ],
-        out_specs=[
-            pl.BlockSpec((b, doc_block), lambda i: (0, i), memory_space=pltpu.VMEM)
-        ] * n_out,
-        out_shape=[jax.ShapeDtypeStruct((b, d), jnp.float32)] * n_out,
-        interpret=interpret,
-    )(_qn_blocks(term_ids, qn, b_block), term_ids, ftT, fwT)
-    if emit_counts:
-        return out[0], out[1]
-    return out[0], None

@@ -57,8 +57,7 @@ def match_phrase_fwd(
     gen_idx: jax.Array,  # int32 scalar
     # fixed-width per-posting position rows [P_pad, pos_cap] (inf pad rows),
     # built by DeviceSection within a memory budget: replaces the [P, E, C]
-    # per-ELEMENT position gather (~10 ns/elt on TPU — measured as 50%+ of
-    # matcher wall time at high caps) with [P, E] ROW gathers
+    # per-ELEMENT position gather with [P, E] ROW gathers
     title_pos_mat: jax.Array | None = None,
     body_pos_mat: jax.Array | None = None,
     *,

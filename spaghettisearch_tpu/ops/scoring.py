@@ -8,9 +8,9 @@ Two formulations share one finalization (cosine normalize -> PageRank blend
 
 1. **Forward membership** (production keyword path): the index is doc-major
    `ft[d, j]` term ids / `fw[d, j]` weights; per query term the score is a
-   dense compare + weighted reduce over [B, D, T] — no scatter, no gather,
-   pure VPU work. Measured ~200x faster than scatter-add on TPU v5e
-   (experiments/kernel_probe.py).
+   dense compare + weighted reduce over [B, D, T] — no scatter, no gather.
+   On the GPU the sweep is a Triton kernel (ops/kernels/membership.py); on
+   the CPU it is the XLA formulation below.
 
 2. **CSR gather/scatter** (phrase + parity path): gather each term's postings
    window and scatter-add per-doc weights. Kept because phrase matching needs
@@ -40,13 +40,31 @@ import jax.numpy as jnp
 from ..config import SCORE_SCALE, W_BODY, W_PAGERANK, W_TITLE
 
 
-def pallas_available() -> bool:
-    """Use the Pallas membership kernel on real TPU backends; the XLA
-    formulation everywhere else (CPU tests, emulated meshes)."""
-    try:
-        return jax.default_backend() not in ("cpu",)
-    except RuntimeError:
+def use_gpu_kernel() -> bool:
+    """The keyword sweep's route, chosen by backend: the Triton kernel on
+    `gpu`, the XLA formulation on `cpu`. No other backend is supported."""
+    backend = jax.default_backend()
+    if backend == "gpu":
+        return True
+    if backend == "cpu":
         return False
+    raise RuntimeError(
+        f"no scoring route for JAX backend {backend!r}; expected gpu or cpu"
+    )
+
+
+#: bound on one doc block's materialized [B, Db, width] f32 plane in the XLA
+#: formulations (ops/scoring.py forward_section_scores, the phrase stage in
+#: ops/kernels/mixed.py); the block count follows from it and the shapes
+XLA_BLOCK_BYTES = 256 << 20
+
+
+def xla_n_blocks(b: int, d: int, width: int) -> int:
+    """Doc blocks needed so one block's [b, Db, width] f32 plane stays
+    within XLA_BLOCK_BYTES."""
+    per_doc = max(b * width * 4, 1)
+    db = max(XLA_BLOCK_BYTES // per_doc, 1)
+    return max(-(-d // db), 1)
 
 
 # ---------------------------------------------------------------------- #
@@ -60,9 +78,8 @@ def exact_top_k(
 ) -> tuple[jax.Array, jax.Array]:
     """Exact top-k over the doc axis.
 
-    Plain lax.top_k wins at small D but costs ~30 ms for k=50 over
-    [128, 1M] on v5e (~50x over the HBM read floor; experiments/
-    probe1m_decomp.py). Large D takes the chunk-max route:
+    Plain lax.top_k at small D. Large D takes the chunk-max route, which
+    reads the scores once and sorts only k candidate chunks:
 
       1. per-128-doc-chunk max             (bandwidth-bound reduce)
       2. lax.top_k over the [B, D/128] chunk maxima
@@ -135,8 +152,8 @@ def finalize_scores(
     body_n = body_score / (mag_body[None, :] * qmag)
     title_n = jnp.where(jnp.isnan(title_n), 0.0, title_n)
     body_n = jnp.where(jnp.isnan(body_n), 0.0, body_n)
-    # topic-sensitive importance (MXU): sqd[b,d] = topic_probs[b] . pagerank[d]
-    sqd = jnp.dot(topic_probs, pagerank.T, preferred_element_type=jnp.float32)
+    # topic-sensitive importance: sqd[b,d] = topic_probs[b] . pagerank[d]
+    sqd = topic_dot(topic_probs, pagerank)
     final = (W_PAGERANK * sqd + W_TITLE * title_n + W_BODY * body_n) * SCORE_SCALE
     count = title_count + body_count
     return jnp.where(count > 0, final, -jnp.inf)
@@ -147,19 +164,33 @@ def finalize_scores(
 # ---------------------------------------------------------------------- #
 
 
+def topic_dot(topic_probs: jax.Array, pagerank: jax.Array) -> jax.Array:
+    """[B, C] . [D, C]^T -> [B, D] in full f32: a GPU's default f32 product
+    may run in TF32 (~10 mantissa bits), which moves final scores by ~1e-3."""
+    return jnp.dot(
+        topic_probs, pagerank.T,
+        preferred_element_type=jnp.float32,
+        precision=jax.lax.Precision.HIGHEST,
+    )
+
+
 def forward_section_scores(
     ft: jax.Array,  # int32 [D, T], -1 padding
     fw: jax.Array,  # f32 [D, T]
     term_ids: jax.Array,  # int32 [B, Q], pad >= n_words (never matches -1)
-    n_blocks: int = 16,
+    n_blocks: int | None = None,  # None: sized by XLA_BLOCK_BYTES
 ) -> tuple[jax.Array, jax.Array]:
     """-> (score [B, D], count [B, D]).
 
     mult[b,d,j] = #occurrences of ft[d,j] among the query's terms (duplicate
     query terms count per occurrence, matching the reference's per-term
-    fan-out); score = sum_j fw*mult, count = sum_j mult."""
+    fan-out); score = sum_j fw*mult, count = sum_j mult. The weighted sum is
+    an elementwise multiply and reduce, not a dot: it fuses with the
+    compares and cannot be lowered to a reduced-precision product."""
     d, t = ft.shape
-    b = term_ids.shape[0]
+    b, q = term_ids.shape
+    if n_blocks is None:
+        n_blocks = xla_n_blocks(b, d, t)
     db = -(-d // n_blocks)
     pad = n_blocks * db - d
     ftb = jnp.pad(ft, ((0, pad), (0, 0)), constant_values=-1).reshape(n_blocks, db, t)
@@ -167,32 +198,16 @@ def forward_section_scores(
 
     def block_scores(args):
         ft_blk, fw_blk = args  # [Db, T]
-        eq = ft_blk[None, :, :, None] == term_ids[:, None, None, :]  # [B,Db,T,Q]
-        mult = eq.sum(-1).astype(jnp.float32)  # [B, Db, T]
-        score = jnp.einsum("bdt,dt->bd", mult, fw_blk)
-        count = mult.sum(-1)
-        return score, count
+        mult = sum(
+            (ft_blk[None] == term_ids[:, qi, None, None]).astype(jnp.float32)
+            for qi in range(q)
+        )  # [B, Db, T]
+        return (mult * fw_blk[None]).sum(-1), mult.sum(-1)
 
     score, count = jax.lax.map(block_scores, (ftb, fwb))  # [M, B, Db]
     score = jnp.moveaxis(score, 0, 1).reshape(b, -1)[:, :d]
     count = jnp.moveaxis(count, 0, 1).reshape(b, -1)[:, :d]
     return score, count
-
-
-def _pad_batch(term_ids, qn, qnb=None):
-    """Pad the batch to a multiple of 8 for the Pallas kernels. Pad rows get
-    sentinel terms and qn=0 so their whole 8-query block's compare loop is
-    skipped at runtime."""
-    b = term_ids.shape[0]
-    b_pad = -(-b // 8) * 8
-    tq = jnp.pad(
-        term_ids, ((0, b_pad - b), (0, 0)), constant_values=jnp.iinfo(jnp.int32).max
-    )
-    if qn is not None:
-        qn = jnp.pad(qn.astype(jnp.int32), (0, b_pad - b))
-    if qnb is not None:
-        qnb = jnp.pad(qnb.astype(jnp.int32), (0, b_pad - b))
-    return tq, qn, qnb, b
 
 
 def mask_cold(term_ids: jax.Array, qnb: jax.Array | None) -> jax.Array:
@@ -201,9 +216,9 @@ def mask_cold(term_ids: jax.Array, qnb: jax.Array | None) -> jax.Array:
     The hot-split layout puts a query's COLD terms in slots [0, qnb) and
     its hot terms after (the title sweep reads all of them); the body sweep
     must see only the cold slots — masking per ROW matters because the
-    Pallas dispatch bounds the compare loop per 8-query BLOCK max, so a
-    row's hot slots below the block max would otherwise be swept AND
-    matmul-added (double count)."""
+    kernel bounds its compare loop per ROW-BLOCK max, so a row's hot slots
+    below the block max would otherwise be swept AND added by the dense
+    hot product (double count)."""
     if qnb is None:
         return term_ids
     q = term_ids.shape[1]
@@ -216,7 +231,7 @@ def mask_cold(term_ids: jax.Array, qnb: jax.Array | None) -> jax.Array:
 
 def hot_body_scores(hot_w: jax.Array, hot_sids: jax.Array) -> jax.Array:
     """Sum of a query's hot-term dense body-weight rows, as a one-hot f32
-    matmul on the MXU: [B, H] @ [H, D] -> [B, D]. hot_sids pads with -1
+    product: [B, H] @ [H, D] -> [B, D]. hot_sids pads with -1
     (never matches the iota). Exact per element (adding true zeros never
     changes an f32 sum; duplicate query terms raise the one-hot entry to
     their multiplicity, matching the sweep's per-occurrence counting);
@@ -228,9 +243,8 @@ def hot_body_scores(hot_w: jax.Array, hot_sids: jax.Array) -> jax.Array:
         .astype(jnp.float32)
         .sum(axis=1)
     )  # [B, H]
-    # HIGHEST: true-f32 accumulation. The TPU default lowers f32 dots to
-    # bf16 passes (~1e-3 rel err) — measured 0.8% of top-50 ids flipping
-    # vs the sweep; full precision restores 1e-7-level score parity
+    # HIGHEST: true-f32 accumulation; a reduced-precision f32 product
+    # (TF32 on a GPU) keeps ~10 mantissa bits, enough to reorder top-50 ids
     return jnp.dot(
         onehot, hot_w,
         preferred_element_type=jnp.float32,
@@ -238,90 +252,34 @@ def hot_body_scores(hot_w: jax.Array, hot_sids: jax.Array) -> jax.Array:
     )
 
 
-def _section_scores(
-    fwd, term_ids, n_blocks: int, use_pallas: bool, qn=None, emit_counts=True
-):
-    """Dispatch one section to the Pallas kernel (TPU) or the XLA
-    formulation. Pallas requires the batch padded to a multiple of 8.
-    With emit_counts=False the count is returned as None (candidacy is
-    score > 0; only valid when every index weight is positive — the XLA
-    path still returns true counts, which is result-equivalent)."""
-    if not use_pallas:
-        return forward_section_scores(fwd.ft, fwd.fw, term_ids, n_blocks)
-    from .kernels.membership import pallas_forward_scores
-
-    tq, qn, _, b = _pad_batch(term_ids, qn)
-    score, count = pallas_forward_scores(
-        fwd.ftT, fwd.fwT, tq, qn, doc_block=512, emit_counts=emit_counts
-    )
-    return score[:b], None if count is None else count[:b]
-
-
 def _both_section_scores(
-    title_fwd, body_fwd, term_ids, n_blocks: int, use_pallas: bool,
+    title_fwd, body_fwd, term_ids, use_kernel: bool,
     qn=None, emit_counts=True, qnb=None, body_tmax=None,
 ):
-    """Title and body in one Pallas pass on TPU (shared tq, one grid sweep);
-    falls back to per-section XLA elsewhere. With qnb (the hot-split cold
-    term count, cold slots first) the BODY sweep covers only the cold
+    """Title and body keyword sweeps: one Triton kernel pass on the GPU,
+    the per-section XLA formulation on the CPU. With qnb (the hot-split
+    cold term count, cold slots first) the BODY sweep covers only the cold
     slots — the hot terms' body contribution comes from the caller's
-    hot_body_scores matmul; the title sweep always covers every slot.
+    hot_body_scores product; the title sweep always covers every slot.
     body_tmax (doc-sorted layout) bounds the kernel's body sweep per doc
-    block; the XLA fallback ignores it (full sweep, result-identical)."""
-    if not use_pallas:
-        ts, tc = forward_section_scores(title_fwd.ft, title_fwd.fw, term_ids, n_blocks)
+    block; the XLA formulation ignores it (full sweep, same result). With
+    emit_counts=False the kernel drops the counts (returned as None);
+    the XLA formulation always returns them."""
+    if not use_kernel:
+        ts, tc = forward_section_scores(title_fwd.ft, title_fwd.fw, term_ids)
         bs, bc = forward_section_scores(
-            body_fwd.ft, body_fwd.fw, mask_cold(term_ids, qnb), n_blocks
+            body_fwd.ft, body_fwd.fw, mask_cold(term_ids, qnb)
         )
         return ts, tc, bs, bc
-    from .kernels.membership import pallas_forward_scores_2sec
+    from .kernels.membership import keyword_scores_2sec
 
-    tq, qn, qnb, b = _pad_batch(term_ids, qn, qnb)
-    ts, tc, bs, bc = pallas_forward_scores_2sec(
-        title_fwd.ftT, title_fwd.fwT, body_fwd.ftT, body_fwd.fwT, tq, qn,
-        doc_block=512, emit_counts=emit_counts, qnb=qnb, body_tmax=body_tmax,
-    )
-    return (
-        ts[:b],
-        None if tc is None else tc[:b],
-        bs[:b],
-        None if bc is None else bc[:b],
+    return keyword_scores_2sec(
+        title_fwd.ftT, title_fwd.fwT, body_fwd.ftT, body_fwd.fwT, term_ids, qn,
+        emit_counts=emit_counts, qnb=qnb, body_tmax=body_tmax,
     )
 
 
-@partial(jax.jit, static_argnames=("topk", "interpret"))
-def score_queries_fused(
-    title_fwd,  # ForwardArrays
-    body_fwd,  # ForwardArrays
-    mag_title: jax.Array,  # f32 [D]
-    mag_body: jax.Array,  # f32 [D]
-    pagerankT: jax.Array,  # f32 [C, D]
-    term_ids: jax.Array,  # int32 [B, Q]
-    query_len: jax.Array,  # f32 [B]
-    topic_probs: jax.Array,  # f32 [B, C]
-    *,
-    topk: int,
-    interpret: bool = False,
-) -> tuple[jax.Array, jax.Array]:
-    """Keyword-only fast path, single fused Pallas pass: membership scoring
-    for both sections + finalization in one kernel — the intermediate
-    [B, D] score/count arrays never exist in HBM."""
-    from .kernels.fused import pallas_fused_final_scores
-
-    b = term_ids.shape[0]
-    b_pad = -(-b // 8) * 8
-    pad = b_pad - b
-    tq = jnp.pad(term_ids, ((0, pad), (0, 0)), constant_values=jnp.iinfo(jnp.int32).max)
-    ql = jnp.pad(query_len, (0, pad), constant_values=1.0)
-    tp = jnp.pad(topic_probs, ((0, pad), (0, 0)))
-    final = pallas_fused_final_scores(
-        title_fwd.ftT, title_fwd.fwT, body_fwd.ftT, body_fwd.fwT,
-        mag_title, mag_body, pagerankT, tq, ql, tp, interpret=interpret,
-    )[:b]
-    return exact_top_k(final, topk)
-
-
-@partial(jax.jit, static_argnames=("topk", "n_blocks", "use_pallas", "emit_counts"))
+@partial(jax.jit, static_argnames=("topk", "use_kernel", "emit_counts"))
 def score_queries_forward(
     title_fwd,  # ForwardArrays
     body_fwd,  # ForwardArrays
@@ -339,13 +297,12 @@ def score_queries_forward(
     doc_map: jax.Array | None = None,  # i32 [D] permuted -> natural ids
     *,
     topk: int,
-    n_blocks: int = 16,
-    use_pallas: bool = False,
+    use_kernel: bool = False,
     emit_counts: bool = True,
 ) -> tuple[jax.Array, jax.Array]:
     """Keyword-only fast path. -> (top scores [B,K], doc ids [B,K])."""
     ts, tc, bs, bc = _both_section_scores(
-        title_fwd, body_fwd, term_ids, n_blocks, use_pallas, qn, emit_counts,
+        title_fwd, body_fwd, term_ids, use_kernel, qn, emit_counts,
         qnb=qnb, body_tmax=body_tmax,
     )
     if hot_w is not None and hot_sids is not None:
@@ -362,7 +319,7 @@ def score_queries_forward(
     return exact_top_k(final, topk, doc_map=doc_map)
 
 
-@partial(jax.jit, static_argnames=("topk", "n_blocks", "use_pallas", "emit_counts"))
+@partial(jax.jit, static_argnames=("topk", "use_kernel", "emit_counts"))
 def score_queries_forward_phrase(
     title_fwd,  # ForwardArrays
     body_fwd,  # ForwardArrays
@@ -384,8 +341,7 @@ def score_queries_forward_phrase(
     doc_map: jax.Array | None = None,
     *,
     topk: int,
-    n_blocks: int = 16,
-    use_pallas: bool = False,
+    use_kernel: bool = False,
     emit_counts: bool = True,
 ) -> tuple[jax.Array, jax.Array]:
     """Forward keyword scoring + sparse phrase fold.
@@ -400,7 +356,7 @@ def score_queries_forward_phrase(
     brow = jnp.arange(b)[:, None]
 
     ts, tc, bs, bc = _both_section_scores(
-        title_fwd, body_fwd, term_ids, n_blocks, use_pallas, qn, emit_counts,
+        title_fwd, body_fwd, term_ids, use_kernel, qn, emit_counts,
         qnb=qnb, body_tmax=body_tmax,
     )
     if hot_w is not None and hot_sids is not None:
@@ -427,14 +383,36 @@ def score_queries_forward_phrase(
     return exact_top_k(final, topk, doc_map=doc_map)
 
 
-@partial(jax.jit, static_argnames=(
-    "topk", "n_blocks", "use_pallas", "emit_counts", "doc_block",
-    "tmax_stage", "tc"))
+def mixed_section_scores(
+    title_fwd, body_fwd, title_posT, body_posT, term_ids, ph_ids, ph_valid,
+    use_kernel: bool, qn=None, pn=None, emit_counts=True, qnb=None,
+    body_tmax=None,
+):
+    """Keyword sweeps (kernel or XLA, as _both_section_scores) with the
+    dense phrase stage (XLA, ops/kernels/mixed.py phrase_scores) folded in:
+    -> (ts, tc, bs, bc), each [B, D]. Phrase weights add to the scores; the
+    phrase candidacy flag adds to the title count when counts are kept
+    (with counts elided, a phrase match has positive weight, so candidacy
+    by score covers it)."""
+    from .kernels.mixed import phrase_scores
+
+    ts, tc, bs, bc = _both_section_scores(
+        title_fwd, body_fwd, term_ids, use_kernel, qn, emit_counts,
+        qnb=qnb, body_tmax=body_tmax,
+    )
+    add_t, add_b, flag = phrase_scores(
+        title_fwd.ftT, title_fwd.fwT, body_fwd.ftT, body_fwd.fwT,
+        title_posT, body_posT, ph_ids, ph_valid, pn,
+    )
+    return ts + add_t, None if tc is None else tc + flag, bs + add_b, bc
+
+
+@partial(jax.jit, static_argnames=("topk", "use_kernel", "emit_counts"))
 def score_queries_mixed(
     title_fwd,  # ForwardArrays
     body_fwd,  # ForwardArrays
-    title_posT: jax.Array,  # f32 [Ct*Tt, D] doc-major positions
-    body_posT: jax.Array,  # f32 [Cb*Tb, D]
+    title_posT: jax.Array,  # f32|int16 [Ct*Tt, D] doc-major positions
+    body_posT: jax.Array,  # f32|int16 [Cb*Tb, D]
     mag_title: jax.Array,
     mag_body: jax.Array,
     pagerank: jax.Array,
@@ -452,45 +430,22 @@ def score_queries_mixed(
     body_tmax: jax.Array | None = None,  # i32 [D//512] (doc-sorted layout)
     *,
     topk: int,
-    n_blocks: int = 16,
-    use_pallas: bool = False,
+    use_kernel: bool = False,
     emit_counts: bool = True,
-    doc_block: int = 256,  # mixed-kernel grid tile (see mixed_scores_padded)
-    tmax_stage: str = "phrase",  # which stage body_tmax bounds ("kw" /
-    # "phrase" / "both"): the keyword-stage bound regresses the mixed
-    # kernel at 1M (VMEM vs the posT stream), the PHRASE-stage bound cuts
-    # the dominant per-phrase-row body sweeps (kernels/mixed.py)
-    tc: int = 16,  # chunk rows for the bounded sweep; 16 matches the
-    # static _T_CHUNK grouping, keeping bounded sums bitwise-identical
 ) -> tuple[jax.Array, jax.Array]:
-    """The FUSED mixed lane: keyword membership scoring + dense phrase
-    matching + fold + finalize + top-k in ONE device program — no sparse
-    matcher dispatches, no host repack, one packed result fetch
-    (ops/kernels/mixed.py has the full design note). body_tmax (doc-sorted
-    layout) bounds the kernel's body sweep (tmax_stage picks which) per
-    doc block; the XLA twin ignores it (full sweep, result-identical)."""
-    b = term_ids.shape[0]
-    if pn is None:
-        pn = (ph_valid.sum(axis=1)).astype(jnp.int32)
-    if use_pallas:
-        from .kernels.mixed import derive_mixed_counts, mixed_scores_padded
+    """The mixed lane: keyword membership scoring + dense phrase matching +
+    fold + finalize + top-k in ONE device program — no sparse matcher
+    dispatches, no host repack, one packed result fetch. body_tmax
+    (doc-sorted layout) bounds the keyword kernel's body sweep per doc
+    block; the XLA formulation ignores it (full sweep, same result)."""
+    from .kernels.mixed import derive_mixed_counts
 
-        # derive candidacy AFTER the hot fold: a doc matched only by a hot
-        # body term must still become a candidate
-        ts, tc, bs, bc = mixed_scores_padded(
-            title_fwd.ftT, title_fwd.fwT, body_fwd.ftT, body_fwd.fwT,
-            title_posT, body_posT, term_ids, qn, ph_ids, ph_valid, pn,
-            doc_block=doc_block, emit_counts=emit_counts, qnb=qnb,
-            derive=False, body_tmax=body_tmax, tmax_stage=tmax_stage, tc=tc,
-        )
-    else:
-        from .kernels.mixed import derive_mixed_counts, mixed_forward_scores
-
-        ts, tc, bs, bc = mixed_forward_scores(
-            title_fwd.ft, title_fwd.fw, body_fwd.ft, body_fwd.fw,
-            title_posT, body_posT, term_ids, ph_ids, ph_valid, n_blocks,
-            qnb=qnb,
-        )
+    ts, tc, bs, bc = mixed_section_scores(
+        title_fwd, body_fwd, title_posT, body_posT, term_ids, ph_ids,
+        ph_valid, use_kernel, qn, pn, emit_counts, qnb, body_tmax,
+    )
+    # derive candidacy AFTER the hot fold: a doc matched only by a hot body
+    # term must still become a candidate
     if hot_w is not None and hot_sids is not None:
         hot = hot_body_scores(hot_w, hot_sids)[:, : bs.shape[1]]
         bs = bs + hot
@@ -587,7 +542,7 @@ def score_dense(
     body_score = body_score + pacc[:, :n_docs, 1]
     title_count = title_count + pacc[:, :n_docs, 2]
 
-    # doc-level arrays may be padded beyond n_docs (Pallas layout); slice
+    # doc-level arrays may be padded beyond n_docs (DOC_BLOCK layout); slice
     if blend is None:
         return finalize_scores(
             title_score, title_count, body_score, body_count,
@@ -599,7 +554,7 @@ def score_dense(
     bn = body_score / (mag_body[None, :n_docs] * qmag)
     tn = jnp.where(jnp.isnan(tn), 0.0, tn)
     bn = jnp.where(jnp.isnan(bn), 0.0, bn)
-    sqd = jnp.dot(topic_probs, pagerank[:n_docs].T, preferred_element_type=jnp.float32)
+    sqd = topic_dot(topic_probs, pagerank[:n_docs])
     final = (blend[0] * sqd + blend[1] * tn + blend[2] * bn) * blend[3]
     return jnp.where(title_count + body_count > 0, final, -jnp.inf)
 

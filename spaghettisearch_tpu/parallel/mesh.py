@@ -1,4 +1,8 @@
-"""Device mesh construction helpers."""
+"""Device mesh construction helpers.
+
+Meshes follow the algorithm, not a physical topology: devices are taken in
+jax.devices() order (every GPU of a host reaches every other at the same
+rate over NVLink)."""
 
 from __future__ import annotations
 
@@ -7,7 +11,7 @@ from jax.sharding import Mesh
 
 
 def make_mesh(n_devices: int | None = None, axis: str = "d") -> Mesh:
-    """1-D mesh over the doc-shard axis (postings + graph sharded over ICI)."""
+    """1-D mesh over the doc-shard axis (postings + graph sharded)."""
     devs = jax.devices()
     if n_devices is not None:
         devs = devs[:n_devices]
@@ -20,8 +24,8 @@ def make_mesh2d(
     n_q: int, n_d: int, axes: tuple[str, str] = ("q", "d")
 ) -> Mesh:
     """2-D mesh: query batches data-parallel over `q` (no communication),
-    docs sharded over `d` (per-shard top-k + all-gather merge rides the
-    inner, fastest ICI axis). Index arrays are replicated across `q`."""
+    docs sharded over `d` (per-shard top-k + all-gather merge along `d`).
+    Index arrays are replicated across `q`."""
     import numpy as np
 
     devs = jax.devices()

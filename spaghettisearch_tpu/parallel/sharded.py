@@ -1,10 +1,10 @@
-"""Multi-chip scale-out over ICI: doc-sharded postings + link graph.
+"""Multi-device scale-out: doc-sharded postings + link graph.
 
 The reference is a single Go process with no distributed layer (SURVEY §2.4);
-this module is the TPU-native scale path called for by BASELINE.json configs
-4-5: postings and the link graph are sharded across a jax.sharding.Mesh, the
+this module is the scale path called for by BASELINE.json configs 4-5:
+postings and the link graph are sharded across a jax.sharding.Mesh, the
 query path does per-shard top-k + all-gather merge, and PageRank's matvec
-rides ICI collectives.
+rides collectives between the devices.
 
 Layout:
 - documents are split into contiguous id ranges, one per shard;
@@ -12,7 +12,7 @@ Layout:
   so any query term is resolvable locally — queries broadcast, docs shard;
 - one shard_map program per query batch: local phrase intersection ->
   local dense scoring -> local top-k -> all_gather([S, B, K]) -> merged
-  top-k. Only B*K*S scores cross ICI, never the [B, D] score matrix.
+  top-k. Only B*K*S scores cross devices, never the [B, D] score matrix.
 """
 
 from __future__ import annotations
@@ -31,11 +31,14 @@ from ..index.snapshot import IndexSnapshot, SectionCSR
 DOC_TERM_CAP = 4096
 from ..ops.phrase import match_phrase, match_phrase_fwd
 from ..ops.scoring import (
+    _both_section_scores,
     exact_top_k,
     finalize_scores,
-    forward_section_scores,
-    pallas_available,
+    mixed_section_scores,
+    use_gpu_kernel,
 )
+from ..ops.kernels.mixed import derive_mixed_counts
+from ..retrieval.device_index import ForwardArrays
 
 
 def _repeat_blocks(starts: np.ndarray, lens: np.ndarray) -> np.ndarray:
@@ -51,6 +54,7 @@ def _shard_csr(
     csr: SectionCSR, n_shards: int, docs_per_shard: int, t_pad: int,
     inv_perm: np.ndarray | None = None,  # [S, Dl] local natural -> permuted
     t_multiple: int = 8,
+    pos_t_budget: int | None = None,  # per-shard posT bytes; None = no gate
 ) -> dict[str, np.ndarray]:
     """Split a global CSR into per-shard local CSRs (stacked, equal shapes),
     plus per-shard doc-major forward views (ft global word ids, fw weights,
@@ -145,7 +149,7 @@ def _shard_csr(
         fw[s, docs_s, slot] = p["weights"][order]
         fj[s, docs_s, slot] = order.astype(np.int32)
 
-    # per-shard doc-major position planes for the fused mixed kernel
+    # per-shard doc-major position planes for the mixed lane's phrase stage
     # (ops/kernels/mixed.py posT layout), stacked at the max unique-position
     # count across shards; None when any shard is over the budget or the
     # dense rows were truncated (those route to the sparse CSR matcher)
@@ -170,7 +174,7 @@ def _shard_csr(
             built = build_posT_raw(
                 off_ext, p["positions"], n_post_local, post_width,
                 fj[s], docs_per_shard, POS_BIG,
-                bytes_per_el=2 if _p16 else 4,
+                bytes_per_el=2 if _p16 else 4, budget=pos_t_budget,
             )
             if built is None:
                 shard_posT = None
@@ -184,17 +188,15 @@ def _shard_csr(
             for s, (arr, c) in enumerate(shard_posT):
                 posT[s, : c * t_pad] = arr
             # int16 planes, same policy as the single-chip DeviceIndex
-            # (exact per-tile dequant in the kernel — scores identical)
-            from ..retrieval.device_index import (
-                POS_T_BUDGET_BYTES, POS_T_INT16,
-            )
+            # (exact dequant in the phrase stage — scores identical)
+            from ..retrieval.device_index import POS_T_INT16, _fits
             from ..ops.kernels.mixed import quantize_posT
 
             if POS_T_INT16:
                 q16 = quantize_posT(posT.reshape(n_shards * pos_c * t_pad, -1))
                 if q16 is not None:
                     posT = q16.reshape(posT.shape)
-                elif pos_c * t_pad * docs_per_shard * 4 > POS_T_BUDGET_BYTES:
+                elif not _fits(pos_c * t_pad * docs_per_shard * 4, pos_t_budget):
                     # built under the 2-byte budget but unquantizable: the
                     # f32 plane is over budget — drop to the sparse lane
                     posT, pos_c = None, 0
@@ -218,28 +220,31 @@ def _shard_csr(
 def _shard_hot_cache(
     csr: SectionCSR, n_shards: int, dl: int,
     inv_perm: np.ndarray | None = None,  # [S, Dl] local natural -> permuted
+    budget: int | None = None,  # per-device bytes; None = no gate
 ) -> tuple[np.ndarray, dict[int, int]] | None:
     """Per-shard slices [S, H_pad, Dl] of the hot-term dense weight cache
     (cf. device_index._build_hot_cache): the top-H GLOBAL-df body terms get
-    exact dense weight rows so a query's hot terms cost one MXU matmul per
-    shard instead of a compare sweep each. The hot SET (and the term-id ->
-    slot map) is global — every shard answers the same hot split — while
-    the H budget is per-chip ([H, Dl] f32 in each shard's HBM)."""
-    from ..retrieval.device_index import HOT_H_MAX, HOT_W_BUDGET_BYTES, _round_up
+    exact dense weight rows so a query's hot terms cost one dense product
+    per shard instead of a compare sweep each. The hot SET (and the term-id
+    -> slot map) is global — every shard answers the same hot split — while
+    the H budget is per device ([H, Dl] f32 in each shard's memory)."""
+    from ..retrieval.device_index import HOT_H_MAX, _round_up
 
     n_post = csr.n_postings
     if n_post == 0:
         return None
     n_words = csr.post_offsets.shape[0] - 1
     df = np.diff(csr.post_offsets[: n_words + 1])
-    h = min(HOT_H_MAX, int(HOT_W_BUDGET_BYTES // max(dl * 4, 1)), n_words)
+    h = min(HOT_H_MAX, n_words)
+    if budget is not None:
+        h = min(h, int(budget // max(dl * 4, 1)))
     if h < 8:
         return None
     top = np.argsort(-df, kind="stable")[:h]
     top = top[df[top] > 0]
     if top.size == 0:
         return None
-    h_pad = _round_up(int(top.size), 128)  # MXU tile alignment; pad rows 0
+    h_pad = _round_up(int(top.size), 128)  # 128-row multiple; pad rows 0
     w = np.zeros((n_shards, h_pad, dl), np.float32)
     for slot, wid in enumerate(top.tolist()):
         s, e = int(csr.post_offsets[wid]), int(csr.post_offsets[wid + 1])
@@ -276,7 +281,8 @@ class ShardedIndex:
     body_ft: jax.Array  # [S, Dl, Tb]
     body_fw: jax.Array
     body_fj: jax.Array
-    # transposed tiles [S, T, Dl] (doc axis on lanes) for the Pallas kernel
+    # transposed tiles [S, T, Dl] (doc axis contiguous) for the keyword
+    # kernel and the phrase stage
     title_ftT: jax.Array = None
     title_fwT: jax.Array = None
     body_ftT: jax.Array = None
@@ -326,15 +332,18 @@ class ShardedIndex:
                 ),
             )
         from ..retrieval.device_index import (
+            DOC_BLOCK,
             DOC_SORT_MIN_DOCS,
             DOC_SORT_TC,
+            MemoryBudget,
             _doc_sort_pays,
             _doc_sort_perm,
         )
 
         n_shards = mesh.shape[axis]
+        budget = MemoryBudget.for_device(mesh.devices.flat[0])
         dl = -(-max(snap.n_docs, 1) // n_shards)
-        dl = -(-dl // 512) * 512  # Pallas doc-block aligned local doc count
+        dl = -(-dl // DOC_BLOCK) * DOC_BLOCK  # doc-block aligned local count
 
         def nt_of(csr: SectionCSR) -> np.ndarray:
             n_post = csr.n_postings
@@ -358,8 +367,8 @@ class ShardedIndex:
         # nt distribution, which every contiguous shard approximates)
         if doc_sort is None:
             # gate on the PER-SHARD padded count: each shard runs its own
-            # sweep, and below the measured tier (device_index.py) the
-            # dynamic-T machinery loses even if the global corpus is large
+            # sweep, and below the gate (device_index.py) the dynamic-T
+            # machinery does not pay even if the global corpus is large
             doc_sort = dl >= DOC_SORT_MIN_DOCS and _doc_sort_pays(body_nt)
         doc_sort = doc_sort and not truncatable and snap.n_docs > 0
         perm_all = inv_all = body_tmax_np = None
@@ -389,10 +398,12 @@ class ShardedIndex:
         title_np = _shard_csr(
             snap.title, n_shards, dl, t_pad_of(snap.title),
             inv_perm=inv_all, t_multiple=t_multiple,
+            pos_t_budget=budget.pos_t_bytes,
         )
         body_np = _shard_csr(
             snap.body, n_shards, dl, t_pad_of(snap.body),
             inv_perm=inv_all, t_multiple=t_multiple,
+            pos_t_budget=budget.pos_t_bytes,
         )
 
         def pad_docs(arr: np.ndarray) -> np.ndarray:
@@ -421,7 +432,10 @@ class ShardedIndex:
         )
         hot_w = hot_map = None
         if not (has_zero_w or title_np["truncated"] or body_np["truncated"]):
-            built = _shard_hot_cache(snap.body, n_shards, dl, inv_perm=inv_all)
+            built = _shard_hot_cache(
+                snap.body, n_shards, dl, inv_perm=inv_all,
+                budget=budget.hot_w_bytes,
+            )
             if built is not None:
                 hot_np, hot_map = built
                 hot_w = put(hot_np)
@@ -537,8 +551,8 @@ def make_sharded_scorer(
     ShardedIndex whose scorer_meta() (and array shapes) match can be passed,
     so a refreshed index reuses the compiled programs.
 
-    Kernel levels (single-chip parity, VERDICT r3 #3): per-8-query-block qn
-    compare-loop dispatch, the hot-term dense body-weight matmul (qnb cold
+    Kernel levels (single-device parity): the keyword kernel's row-block
+    qn bound, the hot-term dense body-weight product (qnb cold
     split + hot_sids slots, reference-blend scoring only), the doc-sorted
     dynamic-T body sweep (per-shard body_tmax; ids gather back through
     doc_perm so callers see natural ids), count elision when every index
@@ -563,6 +577,7 @@ def make_sharded_scorer(
         batch_axis = others[0] if others else None
     bspec = P(batch_axis) if batch_axis else P()
     k = topk
+    use_kernel = use_gpu_kernel()
     n_extra = (1 if use_hot else 0) + (2 if doc_sorted else 0)
 
     def block(*args):
@@ -638,37 +653,15 @@ def make_sharded_scorer(
             jnp.any(ph_valid_b), with_phrase, without_phrase, None
         )
 
-        # local keyword scores: Pallas kernel on TPU (qn block dispatch +
-        # cold-slot body sweep + dynamic-T bound + count elision), XLA
-        # formulation on emulated meshes (+ phrase/hot folds below)
-        if pallas_available():
-            from ..ops.kernels.membership import pallas_forward_scores_2sec
-
-            bq = term_ids.shape[0]
-            b_pad = -(-bq // 8) * 8
-            pad = b_pad - bq
-            tq_p = jnp.pad(
-                term_ids, ((0, pad), (0, 0)),
-                constant_values=jnp.iinfo(jnp.int32).max,
-            )
-            qn_p = jnp.pad(qn.astype(jnp.int32), (0, pad))
-            qnb_p = jnp.pad(qnb.astype(jnp.int32), (0, pad)) if use_hot else None
-            ts, tc, bs, bc = pallas_forward_scores_2sec(
-                tftT, tfwT, bftT, bfwT, tq_p, qn_p, doc_block=512,
-                emit_counts=emit_counts, qnb=qnb_p, body_tmax=body_tmax,
-            )
-            ts, bs = ts[:bq], bs[:bq]
-            tc = None if tc is None else tc[:bq]
-            bc = None if bc is None else bc[:bq]
-        else:
-            from ..ops.scoring import mask_cold
-
-            ts, tc = forward_section_scores(tft, tfw, term_ids, n_blocks=4)
-            bs, bc = forward_section_scores(
-                bft, bfw,
-                mask_cold(term_ids, qnb) if use_hot else term_ids,
-                n_blocks=4,
-            )
+        # local keyword scores: the Triton kernel on the GPU (row-block qn
+        # bounds + cold-slot body sweep + dynamic-T bound + count elision),
+        # the XLA formulation on the CPU (+ phrase/hot folds below)
+        ts, tc, bs, bc = _both_section_scores(
+            ForwardArrays(tft, tfw, tfj, tftT, tfwT),
+            ForwardArrays(bft, bfw, bfj, bftT, bfwT),
+            term_ids, use_kernel, qn, emit_counts,
+            qnb=qnb if use_hot else None, body_tmax=body_tmax,
+        )
         if use_hot:
             from ..ops.scoring import hot_body_scores
 
@@ -677,8 +670,8 @@ def make_sharded_scorer(
             if bc is not None:  # true-count path: hot candidacy counts too
                 bc = bc + (hot > 0).astype(bs.dtype)
         # fold the compressed phrase rows onto their batch rows (pad rows of
-        # the map point past b and drop); the scatter serializes on TPU, so
-        # keyword-only batches skip it entirely
+        # the map point past b and drop); keyword-only batches skip the
+        # scatter entirely
         def fold(_):
             pacc = jnp.zeros((b + 1, dl + 1, 3), dtype=ts.dtype)
             pacc = pacc.at[
@@ -773,10 +766,9 @@ def make_sharded_mixed_scorer(
     ph_ids [B,P], ph_valid [B,P] f32, qn [B], pn [B], qnb [B],
     hot_sids [B,Q]) -> (scores [B,K], global doc ids [B,K]).
     Reference-blend scoring only — custom blends/BM25 keep the sparse
-    two-phase lane. Kernel levels mirror the single-chip score_queries_mixed:
-    hot-term matmul via the qnb cold split, doc-sorted ids gathered back
-    through doc_perm — and like it, NO body_tmax (the dynamic-T body sweep
-    regresses the mixed kernel: VMEM vs the posT stream, FINDINGS r3)."""
+    two-phase lane. Mirrors the single-chip score_queries_mixed: hot-term
+    product via the qnb cold split, the dynamic-T body bound, doc-sorted
+    ids gathered back through doc_perm."""
     meta = (
         scorer_meta(sidx_or_meta)
         if isinstance(sidx_or_meta, ShardedIndex)
@@ -794,7 +786,8 @@ def make_sharded_mixed_scorer(
     bspec = P(batch_axis) if batch_axis else P()
     k = topk
     emit_counts = has_zero_w
-    n_extra = (1 if use_hot else 0) + (1 if doc_sorted else 0)
+    use_kernel = use_gpu_kernel()
+    n_extra = (1 if use_hot else 0) + (2 if doc_sorted else 0)
 
     def block(*args):
         (t_off, t_did, t_w, t_poff, t_pos,
@@ -804,41 +797,24 @@ def make_sharded_mixed_scorer(
             lambda a: a[0], args[:25]
         )
         i = 25
-        hot_w = doc_perm = None
+        hot_w = doc_perm = body_tmax = None
         if use_hot:
             hot_w = args[i][0]
             i += 1
         if doc_sorted:
-            doc_perm = args[i][0]
-            i += 1
+            doc_perm, body_tmax = args[i][0], args[i + 1][0]
+            i += 2
         (term_ids, qlen, topic_probs, ph_ids, ph_valid, qn, pn,
          qnb, hot_sids) = args[i:]
         b = term_ids.shape[0]
-        if pallas_available():
-            from ..ops.kernels.mixed import (
-                derive_mixed_counts,
-                mixed_scores_padded,
-            )
-
-            # derive candidacy AFTER the hot fold (a doc matched only by a
-            # hot body term must still become a candidate)
-            ts, tc, bs, bc = mixed_scores_padded(
-                tftT, tfwT, bftT, bfwT, tposT, bposT,
-                term_ids, qn, ph_ids, ph_valid, pn,
-                emit_counts=emit_counts,
-                qnb=qnb if use_hot else None, derive=False,
-            )
-        else:
-            from ..ops.kernels.mixed import (
-                derive_mixed_counts,
-                mixed_forward_scores,
-            )
-
-            ts, tc, bs, bc = mixed_forward_scores(
-                tft, tfw, bft, bfw, tposT, bposT,
-                term_ids, ph_ids, ph_valid, n_blocks=4,
-                qnb=qnb if use_hot else None,
-            )
+        # derive candidacy AFTER the hot fold (a doc matched only by a hot
+        # body term must still become a candidate)
+        ts, tc, bs, bc = mixed_section_scores(
+            ForwardArrays(tft, tfw, tfj, tftT, tfwT),
+            ForwardArrays(bft, bfw, bfj, bftT, bfwT),
+            tposT, bposT, term_ids, ph_ids, ph_valid, use_kernel, qn, pn,
+            emit_counts, qnb if use_hot else None, body_tmax,
+        )
         if use_hot:
             from ..ops.scoring import hot_body_scores
 
@@ -880,13 +856,8 @@ def make_sharded_mixed_scorer(
             qnb = qn
         if hot_sids is None:
             hot_sids = jnp.full((b, q), -1, jnp.int32)
-        # index_args appends (doc_perm, body_tmax) for doc-sorted indexes;
-        # the mixed program takes doc_perm only (no dynamic-T, see above)
-        idx = index_args(sidx, mixed=True, hot=use_hot, doc_sorted=doc_sorted)
-        if doc_sorted:
-            idx = idx[:-1]
         return _run(
-            *idx,
+            *index_args(sidx, mixed=True, hot=use_hot, doc_sorted=doc_sorted),
             term_ids, qlen, topic_probs, ph_ids, ph_valid, qn, pn,
             qnb, hot_sids,
         )
@@ -910,7 +881,7 @@ def sharded_pagerank(
     """PageRank power iteration with the edge set sharded over the mesh:
     each shard owns a contiguous destination-node range, computes its local
     inherited-mass segment-sum, and the full rank vector is reassembled with
-    an all_gather per iteration (rank vector replicated, O(N) over ICI)."""
+    an all_gather per iteration (rank vector replicated, O(N) per step)."""
     s = mesh.shape[axis]
     nl = -(-max(n_nodes, 1) // s)
     n_pad = s * nl

@@ -1,9 +1,10 @@
-"""Device-resident index: the snapshot's arrays placed in HBM with the
-padding/sentinel layout the gather kernels expect."""
+"""Device-resident index: the snapshot's arrays placed in device memory
+with the padding/sentinel layout the scoring programs expect."""
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+import threading
+from dataclasses import dataclass, field
 from typing import NamedTuple
 
 import jax
@@ -11,7 +12,7 @@ import numpy as np
 
 from ..index.snapshot import IndexSnapshot, SectionCSR
 
-#: doc-axis padding granularity; also the Pallas scorer's doc block
+#: doc-axis padding granularity; also the body_tmax bound's doc block
 DOC_BLOCK = 512
 
 #: bound on per-doc dense forward terms (memory guard; docs beyond it are
@@ -19,31 +20,27 @@ DOC_BLOCK = 512
 DOC_TERM_CAP = 4096
 
 #: doc-sorted layout (see _doc_sort_perm) switches on automatically at and
-#: above this padded doc count. Measured same-day at the 100k tier
-#: (experiments/headline_tbound_probe.py + mixed_tbound_probe.py 100000):
-#: headline keyword program 17.1 -> 12.0 ms/256-batch (+42% qps, top-10 ids
-#: identical over 5,120 queries), mixed 128-batch 20.4 -> 18.9 ms — so the
-#: gate sits well below 100k. Below it small corpora (tests, fixtures) keep
-#: the natural layout: the dynamic-T sweep needs real T-skew to pay, and
-#: natural order keeps small-corpus tie behavior byte-stable. Tie semantics
-#: above the gate stay canonical — exact_top_k re-normalizes to (score
-#: desc, natural id asc) after the doc_map gather on both top-k routes.
+#: above this padded doc count. Below it small corpora (tests, fixtures)
+#: keep the natural layout: the dynamic-T sweep needs real T-skew to pay,
+#: and natural order keeps small-corpus tie behavior byte-stable. Tie
+#: semantics above the gate stay canonical — exact_top_k re-normalizes to
+#: (score desc, natural id asc) after the doc_map gather on both top-k
+#: routes.
 DOC_SORT_MIN_DOCS = 1 << 16
 
-#: body term-axis chunk rows for the doc-sorted dynamic-T sweep; body T is
-#: padded to a multiple of this (ops/kernels/membership.py TBOUND_TC)
+#: body T is padded to a multiple of this under the doc-sorted layout; the
+#: layout gate (_doc_sort_pays) projects each block's sweep at this grain
 DOC_SORT_TC = 32
 
 
 def _doc_sort_pays(nt: np.ndarray) -> bool:
     """Project whether the bounded sweep actually wins on THIS corpus: the
     doc-sorted layout pads body T to a multiple of DOC_SORT_TC (32) and
-    sweeps ceil(block_tmax/32)*32 rows per block, vs the natural layout's
-    static T_pad (multiple of 8). On a uniform-T corpus the 32-row padding
-    can make the bounded sweep LONGER (measured: scale1m's synthetic 1M,
-    48 terms/doc -> 64 swept rows vs 48 static, bench 4.3k -> 3.9k qps);
-    crawled corpora skew (1M crawl: mean 77 vs T_pad 120 -> 0.73). Gate on
-    the projected per-block sweep from the sorted nt distribution."""
+    sweeps ~ceil(block_tmax/32)*32 rows per block, vs the natural layout's
+    static T_pad (multiple of 8). On a uniform-T corpus (the synthetic
+    scale shapes: 48 terms/doc) that padding can make the bounded layout
+    cost more than it saves; crawled corpora skew. Gate on the projected
+    per-block sweep from the sorted nt distribution."""
     t_nat = -(-max(int(nt.max(initial=1)), 1) // 8) * 8
     srt = np.sort(nt)[::-1]
     tmax = srt[:: DOC_BLOCK].astype(np.int64)  # per-block max = block head
@@ -56,11 +53,10 @@ def _doc_sort_perm(
 ) -> tuple[np.ndarray, np.ndarray]:
     """Doc permutation for the dynamic-T membership sweep: sort docs by
     descending distinct-term count so DOC_BLOCK blocks are T-homogeneous,
-    then reorder whole blocks so the two contiguous grid halves (megacore
-    splits the 1-D grid in half) carry ~equal summed work (snake
-    assignment). Returns (perm [d_pad] new-pos -> old-doc, tmax [nb] per
-    new block max nt). ~30% off the dominant body sweep at 1M docs,
-    bitwise-exact scores (experiments/tbound_probe.py)."""
+    then interleave whole blocks (snake assignment) so heavy and light
+    blocks mix along the doc axis. Returns (perm [d_pad] new-pos ->
+    old-doc, tmax [nb] per new block max nt). Scores are bitwise-exact:
+    only pad slots are skipped."""
     order = np.argsort(-nt, kind="stable")
     tmax0 = nt[order].reshape(-1, DOC_BLOCK).max(axis=1)
     blk_order = np.argsort(-tmax0, kind="stable")
@@ -78,8 +74,9 @@ def _round_up(n: int, m: int = 128) -> int:
 
 class ForwardArrays(NamedTuple):
     """Doc-major forward index in both layouts: [D, T] for the XLA
-    formulation, transposed [T, D] (doc axis on lanes) for the Pallas
-    kernel; fj maps each doc-term to its CSR posting (phrase kernel)."""
+    formulation, transposed [T, D] (doc axis contiguous) for the keyword
+    kernel and the phrase stage; fj maps each doc-term to its CSR posting
+    (sparse phrase matcher)."""
 
     ft: jax.Array  # int32 [D_pad, T]
     fw: jax.Array  # f32 [D_pad, T]
@@ -92,53 +89,70 @@ class ForwardArrays(NamedTuple):
 #: this budget (it is pure acceleration; the scalar-gather path is exact)
 POS_MAT_BUDGET_BYTES = 512 << 20
 
-#: doc-major positions (posT, the fused mixed kernel's stream layout) are
-#: built while the RESIDENT plane (C*T_pad*D_pad bytes at 2 B/el under
-#: POS_T_INT16, else 4) per section stays under this budget AND the
+#: doc-major positions (posT, the mixed lane's phrase layout) are built
+#: while the resident plane (C*T_pad*D_pad bytes at 2 B/el under
+#: POS_T_INT16, else 4) per section fits MemoryBudget.pos_t_bytes AND the
 #: per-posting unique-position count stays <= POS_T_C_MAX; the engine
-#: falls back to the sparse two-phase phrase lane when absent. 4 GiB kept
-#: the mixed lane live at the 1M-doc single-chip tier with f32 planes
-#: (body posT 3.58 GiB at C=8, T=120); int16 planes halve that, lifting
-#: the fused-lane ceiling to ~2M docs on a 16 GB chip
-POS_T_BUDGET_BYTES = 4 << 30
+#: falls back to the sparse two-phase phrase lane when absent
 POS_T_C_MAX = 32
 
 #: store posT planes as int16 when every real position fits (mixed.py
-#: quantize_posT): halves the kernel's dominant HBM stream and the plane's
-#: host+device footprint, dequantized per VMEM tile to the exact f32 values
-#: (scores bitwise-identical). Falls back to f32 per section when a
+#: quantize_posT): halves the plane's host and device footprint and the
+#: bytes the phrase stage reads, dequantized per block to the exact f32
+#: values (scores bitwise-identical). Falls back to f32 per section when a
 #: pathological document has positions beyond POS16_MAX.
 POS_T_INT16 = True
 
 #: hot-term dense weight cache (body section): the H highest-df terms get
-#: their exact [D_pad] tf-idf rows stored dense in HBM, so a query's hot
-#: terms cost ONE f32 MXU matmul (one-hot [B,H] @ W [H,D]) instead of a
-#: full [T, D] VPU compare sweep EACH — the sweep cost is per-term and
+#: their exact [D_pad] tf-idf rows stored dense on device, so a query's hot
+#: terms cost ONE f32 product (one-hot [B,H] @ W [H,D]) instead of a full
+#: [T, D] compare sweep EACH — the sweep cost is per-term and
 #: df-independent, while df-weighted query mixes concentrate on exactly
-#: these terms (top-512 covers 42% of df-weighted samples on the 1M bench
-#: corpus; probe1m_decomp.py measured the sweep at ~80 ms/128-batch there).
-#: Cold terms keep the sweep. H = min(HOT_H_MAX, budget / (D_pad*4)).
-#: The matmul reads the WHOLE [H, D] matrix per batch, so H is capped by
-#: the bandwidth trade, not just HBM: at H=4096/100k docs the 1.6 GB read
-#: cost exceeded the sweep savings (probe1m_decomp), at H=512 both tiers
-#: win (2 GB HBM at 1M docs, ~2.5 ms/batch read vs ~30 ms sweep saved).
-HOT_W_BUDGET_BYTES = 2 << 30
+#: these terms. Cold terms keep the sweep. H = min(HOT_H_MAX, budget /
+#: (D_pad*4)). The product reads the WHOLE [H, D] matrix per batch, so H is
+#: capped by that read, not just by memory.
 HOT_H_MAX = 512
-#: Above this padded doc count the hot cache is skipped outright: at 2M
-#: docs the resident index (forward sweeps both orientations + CSR +
-#: int16 posT planes ≈ 12.3 GiB) plus one [B, D] f32 execution's
-#: temporaries already brushes the 16 GB chip — adding a 2 GiB hot matrix
-#: OOMed the first mixed batch (round-5 scale2m, measured). The cold
-#: sweep is the price of top-tier residency; the mesh is the scale path.
-HOT_MAX_DPAD = 1_400_000
-#: Above this padded doc count the doc-major forward copies (ft/fw/fj)
-#: stay host-side and upgrade lazily (see DeviceSection.fwd_device) —
-#: the fused Pallas lane never reads them.
-FWD_DEV_MAX_DPAD = 1_400_000
+
+#: shares of the index device's memory limit (memory_stats()["bytes_limit"])
+#: granted to each optional resident structure; see MemoryBudget
+POS_T_SHARE = 8  # posT plane, per section: 1/8 of the limit
+HOT_W_SHARE = 16  # dense hot-term matrix: 1/16
+FWD_DEV_SHARE = 8  # doc-major ft/fw/fj copies, per section: 1/8
+
+
+@dataclass(frozen=True)
+class MemoryBudget:
+    """Byte budgets for the optional device-resident structures; None means
+    no gate. for_device() derives them from the device's own memory limit;
+    a device that reports none (the CPU backend) gets no gates, and callers
+    that need one (tests) pass explicit budgets."""
+
+    pos_t_bytes: int | None = None  # posT plane, per section
+    hot_w_bytes: int | None = None  # dense hot-term matrix
+    fwd_dev_bytes: int | None = None  # doc-major ft/fw/fj, per section
+
+    @classmethod
+    def for_device(cls, device=None) -> "MemoryBudget":
+        if device is None:
+            device = jax.local_devices()[0]
+        stats = device.memory_stats() if hasattr(device, "memory_stats") else None
+        limit = int((stats or {}).get("bytes_limit") or 0)
+        if not limit:
+            return cls()
+        return cls(
+            pos_t_bytes=limit // POS_T_SHARE,
+            hot_w_bytes=limit // HOT_W_SHARE,
+            fwd_dev_bytes=limit // FWD_DEV_SHARE,
+        )
+
+
+def _fits(nbytes: int, budget: int | None) -> bool:
+    return budget is None or nbytes <= budget
 
 
 def _build_hot_cache(
-    csr: SectionCSR, d_pad: int, inv_perm: np.ndarray | None = None
+    csr: SectionCSR, d_pad: int, inv_perm: np.ndarray | None = None,
+    budget: int | None = None,
 ) -> tuple[np.ndarray, dict[int, int]] | None:
     """Dense [H_pad, D_pad] f32 weight rows for the top-H df terms plus the
     term-id -> hot-slot map. None when the section is empty or the budget
@@ -151,11 +165,12 @@ def _build_hot_cache(
         return None
     n_words = csr.post_offsets.shape[0] - 1
     df = np.diff(csr.post_offsets[: n_words + 1])
-    h = min(HOT_H_MAX, int(HOT_W_BUDGET_BYTES // max(d_pad * 4, 1)), n_words)
+    h = min(HOT_H_MAX, n_words)
+    if budget is not None:
+        h = min(h, int(budget // max(d_pad * 4, 1)))
     if h >= 128:
-        # keep the PADDED array inside the budget: h_pad rounds up to the
-        # 128-row MXU tile, which at 2M docs would otherwise overshoot the
-        # budget by ~50% (384 rows = 3.07 GiB against a 2 GiB budget)
+        # keep the PADDED array inside the budget: h_pad rounds up to a
+        # 128-row multiple
         h = (h // 128) * 128
     if h < 8:
         return None
@@ -163,7 +178,7 @@ def _build_hot_cache(
     top = top[df[top] > 0]
     if top.size == 0:
         return None
-    h_pad = _round_up(int(top.size), 128)  # MXU tile alignment; pad rows 0
+    h_pad = _round_up(int(top.size), 128)  # 128-row multiple; pad rows 0
     w = np.zeros((h_pad, d_pad), np.float32)
     for slot, wid in enumerate(top.tolist()):
         s, e = int(csr.post_offsets[wid]), int(csr.post_offsets[wid + 1])
@@ -176,13 +191,13 @@ def _build_hot_cache(
 
 def _build_posT(
     csr: SectionCSR, fj: np.ndarray, d_pad: int, pos_big: float,
-    bytes_per_el: int = 4,
+    bytes_per_el: int = 4, budget: int | None = None,
 ) -> tuple[np.ndarray, int] | None:
-    """Doc-major positions for the fused phrase kernel (see build_posT_raw;
-    this wrapper unpacks a SectionCSR)."""
+    """Doc-major positions for the mixed lane's phrase stage (see
+    build_posT_raw; this wrapper unpacks a SectionCSR)."""
     return build_posT_raw(
         csr.pos_offsets, csr.positions, csr.n_postings, csr.doc_ids.shape[0],
-        fj, d_pad, pos_big, bytes_per_el=bytes_per_el,
+        fj, d_pad, pos_big, bytes_per_el=bytes_per_el, budget=budget,
     )
 
 
@@ -196,19 +211,20 @@ def build_posT_raw(
     pos_big: float,
     bytes_per_el: int = 4,  # 2 when the caller will quantize to int16:
     # the budget gates the RESIDENT plane, and int16 planes (POS_T_INT16)
-    # keep the fused mixed lane live at ~2x the doc count
+    # keep the mixed lane live at ~2x the doc count
+    budget: int | None = None,  # bytes; None = no gate
 ) -> tuple[np.ndarray, int] | None:
-    """Doc-major positions for the fused phrase kernel:
+    """Doc-major positions for the mixed lane's phrase stage:
 
         posT[c*T + t, d] = c-th UNIQUE position of doc d's term-slot t
 
-    (c-major rows so the kernel's slot-c view posT[c*T:(c+1)*T] is a
-    contiguous [T, Db] tile). Pad = pos_big (finite: the kernel's one-hot
-    select multiplies by 0/1 and inf*0 would poison it). Duplicate
+    (c-major rows so the slot-c view posT[c*T:(c+1)*T] is a contiguous
+    [T, D] plane). Pad = pos_big (finite and never equal to a shifted real
+    position). Duplicate
     positions within a posting (e.g. repeated anchor -100s) carry no chain
     information and are blanked, which also caps C at the max UNIQUE
     position count. Returns None when C would exceed POS_T_C_MAX or the
-    array would exceed POS_T_BUDGET_BYTES."""
+    array would exceed the budget."""
     d, t = fj.shape
     pos_off = pos_offsets.astype(np.int64)
     if n_post == 0:
@@ -234,7 +250,7 @@ def build_posT_raw(
         # the -100 sentinel, so this skips the dedup gather pass
         # (measured the dominant cost of the 1M sharded index build)
         c = max(int(plen.max(initial=1)), 1)
-        if c > POS_T_C_MAX or c * t * d_pad * bytes_per_el > POS_T_BUDGET_BYTES:
+        if c > POS_T_C_MAX or not _fits(c * t * d_pad * bytes_per_el, budget):
             return None
         pos_u = raw
         off_u = np.zeros(p_pad + 1, np.int64)
@@ -249,7 +265,7 @@ def build_posT_raw(
         np.cumsum(keep, out=ksum[1:])
         uniq = ksum[pos_off[1 : n_post + 1]] - ksum[pos_off[:n_post]]
         c = max(int(uniq.max(initial=1)), 1)
-        if c > POS_T_C_MAX or c * t * d_pad * bytes_per_el > POS_T_BUDGET_BYTES:
+        if c > POS_T_C_MAX or not _fits(c * t * d_pad * bytes_per_el, budget):
             return None
         # deduped offsets, extended over padded posting slots (empty ranges)
         off_u = np.zeros(p_pad + 1, np.int64)
@@ -298,9 +314,9 @@ class DeviceSection:
     # turns the phrase matcher's per-element position gather into row
     # gathers (ops/phrase.py match_phrase_fwd); None when over budget
     pos_mat: jax.Array | None = None
-    # doc-major positions [C*T_pad, D_pad] for the fused mixed kernel
-    # (ops/kernels/mixed.py); None when over budget / C too wide — the
-    # engine then falls back to the two-phase sparse phrase lane
+    # doc-major positions [C*T_pad, D_pad] for the mixed lane's phrase
+    # stage (ops/kernels/mixed.py); None when over budget / C too wide —
+    # the engine then falls back to the two-phase sparse phrase lane
     posT: jax.Array | None = None
     pos_c: int = 0
     # True when some doc's dense forward row was truncated (doc_term_cap):
@@ -312,29 +328,32 @@ class DeviceSection:
     # needs true counts; otherwise the kernels may elide count accumulation
     # because candidacy <=> score > 0
     has_zero_weight: bool = False
-    # per-DOC_BLOCK max distinct-term count (i32 [D_pad//DOC_BLOCK], SMEM
-    # input of the dynamic-T membership sweep); only set for the body
-    # section under the doc-sorted layout
+    # per-DOC_BLOCK max distinct-term count (i32 [D_pad//DOC_BLOCK], the
+    # keyword kernel's dynamic-T bound); only set for the body section
+    # under the doc-sorted layout
     tmax_blocks: jax.Array | None = None
     # placement target for lazy uploads (fwd_device)
     device: object | None = None
+    _fwd_lock: threading.Lock = field(
+        default_factory=threading.Lock, repr=False, compare=False
+    )
 
     def fwd_device(self) -> "ForwardArrays":
-        """The forward arrays with ft/fw/fj ON DEVICE. Above
-        FWD_DEV_MAX_DPAD those stay host-side at build (the fused lane
-        never reads them; ~3 GiB of HBM at 2M docs) — the sparse phrase
-        matcher upgrades them here, once, and the result is memoized.
-        Concurrent upgraders both produce valid arrays; the attribute
-        store is atomic."""
-        f = self.fwd
-        if not isinstance(f.ft, np.ndarray):
+        """The forward arrays with ft/fw/fj ON DEVICE. Over the device's
+        fwd budget those stay host-side at build (the keyword kernel and
+        the mixed lane never read them) — the sparse phrase matcher
+        upgrades them here, once, under a lock so concurrent callers
+        upload one copy, and the result is memoized."""
+        with self._fwd_lock:
+            f = self.fwd
+            if not isinstance(f.ft, np.ndarray):
+                return f
+            put = lambda x: jax.device_put(x, self.device)  # noqa: E731
+            f = ForwardArrays(
+                ft=put(f.ft), fw=put(f.fw), fj=put(f.fj), ftT=f.ftT, fwT=f.fwT
+            )
+            self.fwd = f
             return f
-        put = lambda x: jax.device_put(x, self.device)  # noqa: E731
-        f = ForwardArrays(
-            ft=put(f.ft), fw=put(f.fw), fj=put(f.fj), ftT=f.ftT, fwT=f.fwT
-        )
-        self.fwd = f
-        return f
 
     @classmethod
     def from_csr(
@@ -344,9 +363,12 @@ class DeviceSection:
         inv_full: np.ndarray | None = None,  # [n_docs+1] old -> new, pad -> d_pad
         tmax_blocks: np.ndarray | None = None,  # body only (doc-sorted)
         t_multiple: int = 8,
+        budget: MemoryBudget | None = None,  # None: MemoryBudget.for_device
     ) -> "DeviceSection":
         if doc_term_cap is None:
             doc_term_cap = DOC_TERM_CAP
+        if budget is None:
+            budget = MemoryBudget.for_device(device)
         put = lambda x: jax.device_put(x, device)  # noqa: E731
         pos_mat = None
         p_pad = csr.doc_ids.shape[0]
@@ -405,6 +427,7 @@ class DeviceSection:
             built = _build_posT(
                 csr, fj, d_pad, POS_BIG,
                 bytes_per_el=2 if POS_T_INT16 else 4,
+                budget=budget.pos_t_bytes,
             )
             if built is not None:
                 posT_np, pos_c = built
@@ -415,19 +438,20 @@ class DeviceSection:
                     if q16 is not None:
                         posT_np = q16
                 if (posT_np.dtype != np.int16
-                        and posT_np.nbytes > POS_T_BUDGET_BYTES):
+                        and not _fits(posT_np.nbytes, budget.pos_t_bytes)):
                     # quantization refused (pathological positions) and the
                     # f32 plane only fit under the 2-byte budget: drop it
                     posT_np, pos_c = None, 0
                 posT = put(posT_np) if posT_np is not None else None
-        # doc-major ft/fw/fj feed only the sparse phrase matcher and the
-        # XLA-twin formulation; the live Pallas lane reads ftT/fwT (+posT).
-        # Above FWD_DEV_MAX_DPAD they stay HOST-side (three [D, T] copies
-        # are ~3 GiB of HBM at 2M docs — the difference between the fused
-        # lane fitting the chip and OOMing, round-5 scale2m) and upgrade
+        # doc-major ft/fw/fj feed the sparse phrase matcher and the XLA
+        # formulation; the keyword kernel and the mixed lane read ftT/fwT
+        # (+posT). Over the fwd budget they stay HOST-side and upgrade
         # lazily via fwd_device() if a sparse-lane path ever runs. When
         # posT is absent the sparse lane IS the serving path: upload.
-        fwd_eager = d_pad <= FWD_DEV_MAX_DPAD or posT is None or truncated
+        fwd_eager = (
+            _fits(ft.nbytes + fw.nbytes + fj.nbytes, budget.fwd_dev_bytes)
+            or posT is None or truncated
+        )
         fwd = ForwardArrays(
             ft=put(ft) if fwd_eager else ft,
             fw=put(fw) if fwd_eager else fw,
@@ -471,7 +495,7 @@ class DeviceIndex:
     mag_title: jax.Array  # f32 [D_pad]
     mag_body: jax.Array  # f32 [D_pad]
     pagerank: jax.Array  # f32 [D_pad, C] (C >= 1; zeros when no topics)
-    pagerankT: jax.Array  # f32 [C, D_pad] (doc axis on lanes, fused kernel)
+    pagerankT: jax.Array  # f32 [C, D_pad] (doc axis contiguous)
     n_docs: int  # true doc count (hydration bound)
     n_docs_padded: int
     n_words: int
@@ -491,8 +515,11 @@ class DeviceIndex:
 
     @classmethod
     def from_snapshot(
-        cls, snap: IndexSnapshot, device=None, doc_sort: bool | None = None
+        cls, snap: IndexSnapshot, device=None, doc_sort: bool | None = None,
+        budget: MemoryBudget | None = None,  # None: MemoryBudget.for_device
     ) -> "DeviceIndex":
+        if budget is None:
+            budget = MemoryBudget.for_device(device)
         put = lambda x: jax.device_put(x, device)  # noqa: E731
         d_pad = _round_up(max(snap.n_docs, 1), DOC_BLOCK)
 
@@ -542,14 +569,15 @@ class DeviceIndex:
         title = DeviceSection.from_csr(
             snap.title, snap.n_docs, d_pad, device, pos_cap=pos_cap,
             perm=perm, inv_full=inv_full, t_multiple=t_multiple,
+            budget=budget,
         )
         body = DeviceSection.from_csr(
             snap.body, snap.n_docs, d_pad, device, pos_cap=pos_cap,
             perm=perm, inv_full=inv_full, tmax_blocks=body_tmax,
-            t_multiple=t_multiple,
+            t_multiple=t_multiple, budget=budget,
         )
         hot_w = hot_map = None
-        if d_pad <= HOT_MAX_DPAD and not (
+        if not (
             title.has_zero_weight
             or body.has_zero_weight
             or title.dense_truncated
@@ -558,6 +586,7 @@ class DeviceIndex:
             built = _build_hot_cache(
                 snap.body, d_pad,
                 inv_perm=None if inv_full is None else inv_full[: snap.n_docs],
+                budget=budget.hot_w_bytes,
             )
             if built is not None:
                 hot_np, hot_map = built
@@ -599,7 +628,7 @@ class DeviceIndex:
     @property
     def pos_dense(self) -> bool:
         """True when both sections carry the doc-major position layout the
-        fused mixed kernel streams (ops/kernels/mixed.py)."""
+        mixed lane's phrase stage reads (ops/kernels/mixed.py)."""
         return self.title.posT is not None and self.body.posT is not None
 
     @property

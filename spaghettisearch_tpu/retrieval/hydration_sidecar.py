@@ -13,9 +13,8 @@ head/tail digest per file — an append or a compaction rewrite always
 changes it); any mismatch falls back to a fresh build which then re-saves.
 
 The Go reference has no analog — it hydrates per query straight from
-BadgerDB (/root/reference/retrieval/get_metadata.go); the sidecar exists
-because a TPU serving node loads a read-only snapshot and must come up
-fast at the 1M-doc tier.
+BadgerDB (retrieval/get_metadata.go); the sidecar exists because a serving
+node loads a read-only snapshot and must come up fast at the 1M-doc tier.
 
 Per-doc flags: bit0 = record fragment present (budget-stopped prewarms
 leave trailing docs unflagged — they stay on the exact lazy path); bit1 =

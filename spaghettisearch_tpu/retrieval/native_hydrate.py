@@ -3,8 +3,8 @@
 One GIL-released call turns a ranked top-K row into the full JSON response
 bytes (reference contract: retrieval/util.go:56-149, get_metadata.go:16-411)
 from a generation-tagged per-doc store of pre-serialized fragments + summary
-text. Replaces the Python hydrate_row_json hot loop (~0.52 ms/request —
-measured the serving wall on the 1-core host, experiments/FINDINGS.md r3).
+text. Replaces the Python hydrate_row_json hot loop, which made the host
+the serving wall.
 
 A HydrationGen is built per snapshot (prewarm/refresh, off the serving
 lock) and freed with it; assemble() returns None when the caller must fall

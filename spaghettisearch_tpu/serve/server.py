@@ -59,16 +59,16 @@ class SearchServer:
         max_batch: int = 128,
         max_wait_ms: float = 25.0,
         n_fetchers: int = 1,  # concurrent device->host fetch threads
-        # (overlapped relay RTTs — see MicroBatcher; >1 pays off only on
-        # multi-core serving hosts)
+        # (overlapped transfer waits — see MicroBatcher; >1 pays off only
+        # on multi-core serving hosts)
         segregate: str = "auto",  # phrase-class batch segregation
         # ("auto"/"on"/"off"): class-pure batches keep keyword-only traffic
         # on the leveled keyword program (see MicroBatcher)
         ph_patience_ms: float = 250.0,  # max extra wait for a non-full
         # phrase-class batch while keyword work is pending
         ph_pool_min: int = 0,  # >0: merge the phrase cohort once this many
-        # pooled — a phrase-latency-vs-qps trade, off by default (the 1M
-        # A/B measured -37% qps at pool=16; see MicroBatcher)
+        # pooled — a phrase-latency-vs-qps trade, off by default (see
+        # MicroBatcher)
         ph_stale: str = "merge",  # patience-expired cohort policy:
         # "merge" (default) or "pure" (standalone small phrase batch;
         # pair with engine.phrase_b32 — see MicroBatcher)

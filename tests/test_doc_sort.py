@@ -1,7 +1,7 @@
 """Doc-sorted device layout (DeviceIndex doc_sort): docs sorted by distinct
-body-term count so the membership kernel's body sweep can stop at each doc
-block's real T bound (experiments/tbound_probe.py: -37% off the dominant 1M
-sweep). Everything downstream must be invisible to callers: scorers gather
+body-term count so the keyword kernel's body sweep can stop at each doc
+block's real T bound (tests/test_gpu_route.py checks the bound against the
+static sweep). Everything downstream must be invisible to callers: scorers gather
 top-k ids back through doc_perm, so engine results match the natural layout
 exactly (modulo f32 tie groups, which these fixtures avoid)."""
 
@@ -30,63 +30,6 @@ def test_exact_top_k_doc_map_both_routes():
         )
         np.testing.assert_array_equal(np.asarray(got_s), np.asarray(want_s))
         np.testing.assert_array_equal(np.asarray(got_i), np.asarray(want_i))
-
-
-def test_tbound_kernel_matches_static():
-    """The dynamic-T body sweep (body_tmax + tc chunks) must reproduce the
-    static kernel on a doc-sorted layout — interpret mode on CPU, covering
-    qn dispatch, the hot-split qnb tile, and both emit_counts variants."""
-    from spaghettisearch_tpu.ops.kernels.membership import (
-        pallas_forward_scores_2sec,
-    )
-
-    rng = np.random.default_rng(11)
-    d, tb, tt, n_vocab = 1024, 32, 8, 500
-    doc_block = 128
-    tc = 8
-    b, q = 8, 4
-    # per-doc distinct counts, already sorted desc (the layout contract)
-    nt = np.sort(rng.integers(0, tb + 1, d).astype(np.int32))[::-1].copy()
-    mask = np.arange(tb)[:, None] < nt[None, :]
-    bft = np.where(mask, rng.integers(0, n_vocab, (tb, d)), -1).astype(np.int32)
-    bfw = np.where(mask, rng.random((tb, d)).astype(np.float32) + 0.01, 0.0).astype(
-        np.float32
-    )
-    tmask = np.arange(tt)[:, None] < 3
-    tft = np.where(tmask, rng.integers(0, n_vocab, (tt, d)), -1).astype(np.int32)
-    tfw = np.where(tmask, 0.5, 0.0).astype(np.float32)
-    tmax = jnp.asarray(
-        nt.reshape(-1, doc_block).max(axis=1).astype(np.int32)
-    )
-
-    qn = np.array([4, 3, 2, 2, 1, 1, 0, 0], np.int32)
-    term_ids = np.full((b, q), np.iinfo(np.int32).max, np.int32)
-    for i, n in enumerate(qn):
-        # draw from the index so some terms actually hit
-        term_ids[i, :n] = bft[0, rng.integers(0, tb, n)]
-    qnb = np.maximum(qn - 1, 0).astype(np.int32)  # exercise the cold bound
-
-    args = (
-        jnp.asarray(tft), jnp.asarray(tfw), jnp.asarray(bft), jnp.asarray(bfw),
-        jnp.asarray(term_ids), jnp.asarray(qn),
-    )
-    for emit_counts in (True, False):
-        for use_qnb in (False, True):
-            kw = dict(
-                doc_block=doc_block, emit_counts=emit_counts, interpret=True,
-                qnb=jnp.asarray(qnb) if use_qnb else None,
-            )
-            want = pallas_forward_scores_2sec(*args, **kw)
-            got = pallas_forward_scores_2sec(
-                *args, body_tmax=tmax, tc=tc, **kw
-            )
-            for w, g in zip(want, got):
-                if w is None:
-                    assert g is None
-                    continue
-                np.testing.assert_allclose(
-                    np.asarray(g), np.asarray(w), rtol=1e-6, atol=1e-7
-                )
 
 
 @pytest.fixture(scope="module")
@@ -190,69 +133,3 @@ def test_doc_sort_auto_threshold():
     assert forced.match_pad == forced.n_docs_padded
 
 
-@pytest.mark.parametrize("emit_counts", [True, False])
-def test_mixed_tbound_kernel_matches_static(emit_counts):
-    """The MIXED kernel's dynamic-T body keyword sweep (body_tmax + tc,
-    doc-sorted layout) must reproduce the static mixed kernel — interpret
-    mode on CPU, covering phrase rows, the qn dispatch, and the hot-split
-    qnb tile."""
-    from spaghettisearch_tpu.ops.kernels.mixed import (
-        pallas_mixed_scores_2sec,
-    )
-
-    db = build_corpus_db(n_pages=30, seed=23)
-    eng = QueryEngine(db, doc_sort=True)
-    idx = eng.index
-    assert idx.pos_dense and idx.body.tmax_blocks is not None
-    n_words = eng.snapshot.n_words
-
-    rng = np.random.default_rng(5)
-    b, q, p = 16, 4, 4
-    term_ids = rng.integers(0, n_words + 1, (b, q)).astype(np.int32)
-    qn = rng.integers(0, q + 1, b).astype(np.int32)
-    ph_ids = rng.integers(0, n_words, (b, p)).astype(np.int32)
-    pn = rng.integers(0, p + 1, b).astype(np.int32)
-    ph_valid = (np.arange(p)[None, :] < pn[:, None]).astype(np.float32)
-    ph_ids[ph_valid == 0] = n_words
-    order = np.lexsort((-qn, -pn))  # engine contract: phrase rows first
-    term_ids, qn, ph_ids, ph_valid, pn = (
-        term_ids[order], qn[order], ph_ids[order], ph_valid[order], pn[order]
-    )
-    qnb = np.maximum(qn - 1, 0).astype(np.int32)
-
-    d = idx.title.fwd.ftT.shape[1]
-    doc_block = 256
-    assert d % doc_block == 0
-    # mixed_scores_padded's repeat: canonical [D//512] -> kernel granularity
-    tmax = jnp.repeat(
-        idx.body.tmax_blocks, (d // doc_block) // idx.body.tmax_blocks.shape[0]
-    )
-    args = (
-        idx.title.fwd.ftT, idx.title.fwd.fwT,
-        idx.body.fwd.ftT, idx.body.fwd.fwT,
-        idx.title.posT, idx.body.posT,
-        jnp.asarray(term_ids), jnp.asarray(qn),
-        jnp.asarray(ph_ids), jnp.asarray(ph_valid), jnp.asarray(pn),
-    )
-    for use_qnb in (False, True):
-        kw = dict(
-            doc_block=doc_block, emit_counts=emit_counts, interpret=True,
-            qnb=jnp.asarray(qnb) if use_qnb else None,
-        )
-        want = pallas_mixed_scores_2sec(*args, **kw)
-        # tmax_stage: "kw" bounds the keyword body sweep, "phrase" the
-        # phrase stage's body sweeps (the per-phrase-row cost), "both"
-        # bounds both; tc=16 matches the static _T_CHUNK grouping
-        for stage, tc in (("kw", 32), ("phrase", 16), ("phrase", 32),
-                          ("both", 32)):
-            got = pallas_mixed_scores_2sec(
-                *args, body_tmax=tmax, tmax_stage=stage, tc=tc, **kw
-            )
-            for w, g in zip(want, got):
-                if w is None:
-                    assert g is None
-                    continue
-                np.testing.assert_allclose(
-                    np.asarray(g), np.asarray(w), rtol=1e-6, atol=1e-7,
-                    err_msg=f"stage={stage} tc={tc} qnb={use_qnb}",
-                )

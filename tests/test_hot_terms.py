@@ -3,7 +3,8 @@ _build_hot_cache + ops/scoring.py hot_body_scores): a query's hot terms are
 removed from the body compare sweep (cold-first slot layout, qnb bound) and
 contributed instead by a one-hot f32 matmul over the dense [H, D] rows. The
 split must be score-equivalent to the full sweep on every path: engine
-routing, the XLA twins, and the Pallas kernels (interpret mode)."""
+routing and the XLA formulations (tests/test_gpu_route.py covers the
+keyword kernel's qnb split in interpret mode)."""
 
 from __future__ import annotations
 
@@ -128,83 +129,6 @@ def test_engine_hot_rows_are_cold_first(snap, engines):
     assert qn[0] == 2 and qnb[0] == 1
     assert tids[0, 0] == cold_wid and tids[0, 1] == hot_wid
     assert sids[0, 0] == hm[hot_wid] and sids[0, 1] == -1
-
-
-def test_membership_kernel_qnb_interpret(snap):
-    """pallas_forward_scores_2sec with a qnb split (interpret mode) must
-    equal the full-sweep title scores and the cold-masked body scores."""
-    from spaghettisearch_tpu.ops.kernels.membership import (
-        pallas_forward_scores_2sec,
-    )
-    from spaghettisearch_tpu.ops.scoring import (
-        forward_section_scores,
-        mask_cold,
-    )
-
-    idx = DeviceIndex.from_snapshot(snap)
-    rng = np.random.default_rng(3)
-    b, q = 16, 4
-    tq = rng.integers(0, snap.n_words + 1, (b, q)).astype(np.int32)
-    qn = rng.integers(0, q + 1, b).astype(np.int32)
-    qnb = np.minimum(rng.integers(0, q + 1, b).astype(np.int32), qn)
-    order = np.lexsort((-qn, -qnb))
-    tq, qn, qnb = tq[order], qn[order], qnb[order]
-
-    ts_k, _, bs_k, _ = pallas_forward_scores_2sec(
-        idx.title.fwd.ftT, idx.title.fwd.fwT,
-        idx.body.fwd.ftT, idx.body.fwd.fwT,
-        jnp.asarray(tq), jnp.asarray(qn),
-        emit_counts=False, interpret=True, qnb=jnp.asarray(qnb),
-    )
-    ts_x, _ = forward_section_scores(idx.title.fwd.ft, idx.title.fwd.fw, jnp.asarray(tq))
-    bs_x, _ = forward_section_scores(
-        idx.body.fwd.ft, idx.body.fwd.fw, mask_cold(jnp.asarray(tq), jnp.asarray(qnb))
-    )
-    np.testing.assert_allclose(np.asarray(ts_k), np.asarray(ts_x), rtol=1e-5)
-    np.testing.assert_allclose(np.asarray(bs_k), np.asarray(bs_x), rtol=1e-5)
-
-
-def test_mixed_kernel_qnb_interpret(snap):
-    """The mixed Pallas kernel's body sweep under a qnb split (interpret
-    mode) must equal the qnb-masked XLA twin."""
-    from spaghettisearch_tpu.ops.kernels.mixed import (
-        mixed_forward_scores,
-        pallas_mixed_scores_2sec,
-    )
-
-    idx = DeviceIndex.from_snapshot(snap)
-    if not idx.pos_dense:
-        pytest.skip("synth snapshot lacks posT")
-    rng = np.random.default_rng(7)
-    b, q, p = 16, 4, 4
-    tq = rng.integers(0, snap.n_words + 1, (b, q)).astype(np.int32)
-    qn = rng.integers(0, q + 1, b).astype(np.int32)
-    qnb = np.minimum(rng.integers(0, q + 1, b).astype(np.int32), qn)
-    pn = rng.integers(0, p + 1, b).astype(np.int32)
-    ph_valid = (np.arange(p)[None, :] < pn[:, None]).astype(np.float32)
-    ph_ids = rng.integers(0, snap.n_words, (b, p)).astype(np.int32)
-    ph_ids[ph_valid == 0] = snap.n_words
-    order = np.lexsort((-qn, -qnb, -pn))
-    tq, qn, qnb, pn = tq[order], qn[order], qnb[order], pn[order]
-    ph_ids, ph_valid = ph_ids[order], ph_valid[order]
-
-    ts_k, _, bs_k, _ = pallas_mixed_scores_2sec(
-        idx.title.fwd.ftT, idx.title.fwd.fwT,
-        idx.body.fwd.ftT, idx.body.fwd.fwT,
-        idx.title.posT, idx.body.posT,
-        jnp.asarray(tq), jnp.asarray(qn),
-        jnp.asarray(ph_ids), jnp.asarray(ph_valid), jnp.asarray(pn),
-        emit_counts=False, interpret=True, qnb=jnp.asarray(qnb),
-    )
-    ts_x, _, bs_x, _ = mixed_forward_scores(
-        idx.title.fwd.ft, idx.title.fwd.fw,
-        idx.body.fwd.ft, idx.body.fwd.fw,
-        idx.title.posT, idx.body.posT,
-        jnp.asarray(tq), jnp.asarray(ph_ids), jnp.asarray(ph_valid),
-        qnb=jnp.asarray(qnb),
-    )
-    np.testing.assert_allclose(np.asarray(ts_k), np.asarray(ts_x), rtol=1e-5)
-    np.testing.assert_allclose(np.asarray(bs_k), np.asarray(bs_x), rtol=1e-5)
 
 
 def test_hot_cache_disabled_on_zero_weight_index():

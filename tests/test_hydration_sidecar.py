@@ -4,8 +4,8 @@ byte-for-byte identical responses, and detect any store change via the
 content fingerprint (spaghettisearch_tpu/retrieval/hydration_sidecar.py).
 
 The Go reference hydrates per query straight from BadgerDB
-(/root/reference/retrieval/get_metadata.go); the sidecar is TPU-serving
-infrastructure for the 1M-doc tier (prewarm measured ~280 s there)."""
+(retrieval/get_metadata.go); the sidecar is serving infrastructure for the
+1M-doc tier, where the prewarm walk takes minutes."""
 
 import datetime
 import json
@@ -127,7 +127,7 @@ def test_in_memory_snapshot_skips_sidecar(setup):
 
 
 def test_streamed_builder_equals_dict_builder(tmp_path):
-    """The streaming prewarm (bounded-RAM sidecar build, VERDICT r3 #6)
+    """The streaming prewarm (bounded-RAM sidecar build)
     must produce per-doc fragments and texts byte-identical to the
     in-memory dict builder it replaced on the disk-backed path."""
     import numpy as np

@@ -127,60 +127,6 @@ def test_fused_lane_single_batch_mixed_rows():
             np.testing.assert_allclose(got[doc], want[doc], rtol=1e-5)
 
 
-@pytest.mark.parametrize("emit_counts", [True, False])
-def test_pallas_mixed_interpret_matches_xla(emit_counts):
-    """The Pallas kernel (interpret mode on CPU) against its XLA twin."""
-    from spaghettisearch_tpu.ops.kernels.mixed import (
-        mixed_forward_scores,
-        pallas_mixed_scores_2sec,
-    )
-
-    db = _build_corpus(9, n_pages=24)
-    snap = build_snapshot(db)
-    idx = DeviceIndex.from_snapshot(snap)
-    assert idx.pos_dense
-    rng = np.random.default_rng(11)
-    b, q, p = 16, 4, 4
-    term_ids = rng.integers(0, snap.n_words + 1, (b, q)).astype(np.int32)
-    qn = rng.integers(0, q + 1, b).astype(np.int32)
-    ph_ids = rng.integers(0, snap.n_words, (b, p)).astype(np.int32)
-    pn = rng.integers(0, p + 1, b).astype(np.int32)
-    ph_valid = (np.arange(p)[None, :] < pn[:, None]).astype(np.float32)
-    ph_ids[ph_valid == 0] = snap.n_words
-    # sort like the engine: phrase rows first
-    perm = np.lexsort((-qn, -pn))
-    term_ids, qn, ph_ids, ph_valid, pn = (
-        term_ids[perm], qn[perm], ph_ids[perm], ph_valid[perm], pn[perm]
-    )
-
-    ts_k, tc_k, bs_k, bc_k = pallas_mixed_scores_2sec(
-        idx.title.fwd.ftT, idx.title.fwd.fwT,
-        idx.body.fwd.ftT, idx.body.fwd.fwT,
-        idx.title.posT, idx.body.posT,
-        jnp.asarray(term_ids), jnp.asarray(qn),
-        jnp.asarray(ph_ids), jnp.asarray(ph_valid), jnp.asarray(pn),
-        emit_counts=emit_counts, interpret=True,
-    )
-    ts_x, tc_x, bs_x, bc_x = mixed_forward_scores(
-        idx.title.fwd.ft, idx.title.fwd.fw,
-        idx.body.fwd.ft, idx.body.fwd.fw,
-        idx.title.posT, idx.body.posT,
-        jnp.asarray(term_ids), jnp.asarray(ph_ids), jnp.asarray(ph_valid),
-    )
-    np.testing.assert_allclose(np.asarray(ts_k), np.asarray(ts_x), rtol=1e-5)
-    np.testing.assert_allclose(np.asarray(bs_k), np.asarray(bs_x), rtol=1e-5)
-    if emit_counts:
-        np.testing.assert_allclose(np.asarray(tc_k), np.asarray(tc_x), rtol=1e-5)
-        np.testing.assert_allclose(np.asarray(bc_k), np.asarray(bc_x), rtol=1e-5)
-    elif not idx.has_zero_weight:
-        # candidacy equivalence (score>0 <=> counted candidate) only holds
-        # when every weight is positive — exactly the engine's routing
-        # condition (emit_counts=index.has_zero_weight)
-        cand_k = (np.asarray(ts_k) + np.asarray(bs_k)) > 0
-        cand_x = (np.asarray(tc_x) + np.asarray(bc_x)) > 0
-        assert (cand_k == cand_x).all()
-
-
 def test_build_posT_dedupes_and_windows():
     """posT keeps every UNIQUE position even when raw lists exceed the
     unique count (duplicate -100 anchors must not evict later positions)."""

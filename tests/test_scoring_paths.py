@@ -100,38 +100,6 @@ def test_exact_top_k_chunk_max_path():
     assert np.asarray(got_i)[0, :2].tolist() == [7, 250_000]
 
 
-def test_fused_kernel_matches_unfused(engine):
-    """The fused membership+finalize Pallas kernel (interpret mode on CPU)
-    must reproduce the unfused XLA path exactly."""
-    import jax.numpy as jnp
-
-    from spaghettisearch_tpu.ops.scoring import (
-        score_queries_forward,
-        score_queries_fused,
-    )
-
-    idx = engine.index
-    rng = np.random.default_rng(3)
-    b, q = 5, 4  # deliberately not a multiple of 8: exercises batch padding
-    term_ids = rng.integers(0, engine.snapshot.n_words + 1, (b, q)).astype(np.int32)
-    qlen = rng.uniform(1, 4, b).astype(np.float32)
-    tp = rng.uniform(0, 1, (b, idx.n_categories)).astype(np.float32)
-
-    want_s, want_i = score_queries_forward(
-        idx.title.fwd, idx.body.fwd, idx.mag_title, idx.mag_body, idx.pagerank,
-        jnp.asarray(term_ids), jnp.asarray(qlen), jnp.asarray(tp), topk=20,
-    )
-    got_s, got_i = score_queries_fused(
-        idx.title.fwd, idx.body.fwd, idx.mag_title, idx.mag_body, idx.pagerankT,
-        jnp.asarray(term_ids), jnp.asarray(qlen), jnp.asarray(tp), topk=20,
-        interpret=True,
-    )
-    want_s, want_i, got_s, got_i = map(np.asarray, (want_s, want_i, got_s, got_i))
-    np.testing.assert_allclose(got_s, want_s, rtol=1e-5, atol=1e-6)
-    finite = np.isfinite(want_s)
-    np.testing.assert_array_equal(got_i[finite], want_i[finite])
-
-
 def test_forward_doc_term_cap_bounds_memory():
     """A pathological doc with a huge vocabulary must not inflate T_pad for
     the whole corpus; its dense row keeps the top-weight terms, and docs
@@ -165,60 +133,6 @@ def test_forward_doc_term_cap_bounds_memory():
         assert set(exact_ft[d][exact_ft[d] >= 0]) == set(ft[d][ft[d] >= 0])
 
 
-def test_membership_kernel_qn_and_count_elision(engine):
-    """The Pallas membership kernel's round-2 variants — per-block dynamic q
-    (batch sorted by term count) and count elision (candidacy <=> score > 0
-    when all weights are positive) — must reproduce the XLA path exactly.
-    Interpret mode on CPU."""
-    import jax.numpy as jnp
-
-    from spaghettisearch_tpu.ops.kernels.membership import (
-        pallas_forward_scores_2sec,
-    )
-    from spaghettisearch_tpu.ops.scoring import forward_section_scores
-
-    idx = engine.index
-    snap = engine.snapshot
-    rng = np.random.default_rng(5)
-    b, q = 8, 4
-    # rows with 4, 3, 2, 2, 1, 1, 0, 0 active terms (sorted descending, the
-    # contract rank() establishes); inactive slots hold the sentinel
-    qn = np.array([4, 3, 2, 2, 1, 1, 0, 0], np.int32)
-    term_ids = np.full((b, q), snap.n_words, np.int32)
-    for i, n in enumerate(qn):
-        term_ids[i, :n] = rng.integers(0, snap.n_words, n)
-
-    want = []
-    for fwd in (idx.title.fwd, idx.body.fwd):
-        s, c = forward_section_scores(fwd.ft, fwd.fw, jnp.asarray(term_ids), 4)
-        want.extend([np.asarray(s), np.asarray(c)])
-
-    for emit_counts in (True, False):
-        ts, tc, bs, bc = pallas_forward_scores_2sec(
-            idx.title.fwd.ftT, idx.title.fwd.fwT,
-            idx.body.fwd.ftT, idx.body.fwd.fwT,
-            jnp.asarray(term_ids), jnp.asarray(qn),
-            doc_block=128, emit_counts=emit_counts, interpret=True,
-        )
-        np.testing.assert_allclose(np.asarray(ts), want[0], rtol=1e-6)
-        np.testing.assert_allclose(np.asarray(bs), want[2], rtol=1e-6)
-        if emit_counts:
-            np.testing.assert_array_equal(np.asarray(tc), want[1])
-            np.testing.assert_array_equal(np.asarray(bc), want[3])
-        else:
-            assert tc is None and bc is None
-            cand_scores = (np.asarray(ts) + np.asarray(bs)) > 0
-            cand_counts = (want[1] + want[3]) > 0
-            if not idx.has_zero_weight:
-                # candidacy equivalence given strictly positive weights
-                np.testing.assert_array_equal(cand_scores, cand_counts)
-            else:
-                # this corpus has idf==0 (df==N) postings: score>0 still
-                # implies count>0, and production routing keeps the counted
-                # kernel (models pass emit_counts=index.has_zero_weight)
-                assert np.all(~cand_scores | cand_counts)
-
-
 def test_engine_rank_order_independent_of_term_count_sort(engine):
     """rank() sorts the batch by term count for the kernel and must
     inverse-permute results back to request order."""
@@ -237,18 +151,23 @@ def test_engine_rank_order_independent_of_term_count_sort(engine):
             assert g["FinalRank"] == pytest.approx(w["FinalRank"])
 
 
-def test_lazy_fwd_host_resident_matches_eager(monkeypatch):
-    """Above FWD_DEV_MAX_DPAD the doc-major ft/fw/fj stay host-side (the
-    fused lane never reads them; ~3 GiB of HBM at 2M docs) and the sparse
+def test_lazy_fwd_host_resident_matches_eager():
+    """Over the device's fwd budget the doc-major ft/fw/fj stay host-side
+    (the keyword kernel and the mixed lane never read them) and the sparse
     phrase matcher upgrades them lazily via fwd_device() — results must be
-    identical either way, on both the fused lane and the sparse lane."""
+    identical either way, on both the mixed lane and the sparse lane."""
     from spaghettisearch_tpu.models.bm25 import BM25Ranker
-    from spaghettisearch_tpu.retrieval import device_index as di
+    from spaghettisearch_tpu.retrieval.device_index import MemoryBudget
 
     db = build_corpus_db(n_pages=25, seed=9)
     eager = QueryEngine(db)
-    monkeypatch.setattr(di, "FWD_DEV_MAX_DPAD", 0)
-    lazy = QueryEngine(db)
+    snap = eager.snapshot
+    tight = MemoryBudget(fwd_dev_bytes=0)
+
+    def lazy_index():
+        return DeviceIndex.from_snapshot(snap, budget=tight)
+
+    lazy = QueryEngine(db, snapshot=snap, index=lazy_index())
     assert isinstance(lazy.index.body.fwd.ft, np.ndarray), "fwd not host-side"
     queries = ["algorithm database", '"quantum physics"',
                'ranking "matrix tensor" cluster', "poetry"]
@@ -256,10 +175,10 @@ def test_lazy_fwd_host_resident_matches_eager(monkeypatch):
                        lazy.query_batch(queries)):
         assert [r["Url"] for r in g] == [r["Url"] for r in w], q
 
-    # sparse lane (BM25 has no fused mixed path): the phrase matcher must
+    # sparse lane (BM25 has no mixed lane): the phrase matcher must
     # trigger the lazy upgrade and match the eager engine result-for-result
-    eb = QueryEngine(db, model=BM25Ranker())
-    lb = QueryEngine(db, model=BM25Ranker())
+    eb = QueryEngine(db, snapshot=snap, model=BM25Ranker())
+    lb = QueryEngine(db, snapshot=snap, index=lazy_index(), model=BM25Ranker())
     assert isinstance(lb.index.body.fwd.ft, np.ndarray)
     for q in queries:
         w, g = eb.query(q), lb.query(q)

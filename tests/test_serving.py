@@ -282,7 +282,7 @@ def test_batcher_returns_native_bodies(prewarmed):
         b.shutdown()
 
 
-# ---------------- fastloop abuse guards (VERDICT r2 weak #4) ------------- #
+# ---------------------- fastloop abuse guards ---------------------------- #
 
 
 def _guarded_server(engine, **opts):
@@ -483,7 +483,7 @@ def test_big_batch_server_coalesces_past_128(engine):
 
 def test_fastloop_relative_static_dir_serves(engine, tmp_path, monkeypatch):
     """A relative static_dir must serve assets, not 403 them (the traversal
-    guard compares against the absolute root — VERDICT r3 weak #7)."""
+    guard compares against the absolute root)."""
     import socket
 
     (tmp_path / "static").mkdir()

@@ -391,7 +391,7 @@ def test_sharded_class_batching_advice(db, monkeypatch):
     assert eng.class_batching_pays() is True  # fused lane + "large" corpus
 
 
-# ------- single-chip kernel-level parity on the mesh (VERDICT r3 #3) ------ #
+# ------------ single-device kernel-level parity on the mesh -------------- #
 
 
 def _hot_synth_snap():
@@ -541,7 +541,7 @@ def test_sharded_engine_doc_sorted_end_to_end(db, monkeypatch):
 
 
 def test_sharded_refresh_warm_covers_all_live_shapes(db):
-    """VERDICT r4 #5: after a geometry-changing refresh, the FIRST query of
+    """After a geometry-changing refresh, the FIRST query of
     every program family the batcher can dispatch must hit a warmed program.
     A lazy shard_map compile under live mesh load starves in-flight
     collectives past XLA's ~40 s rendezvous watchdog and fatally aborts the

@@ -5,11 +5,9 @@ vectorized-numpy passes. This file keeps a structurally INDEPENDENT
 implementation — one global stable argsort to (shard, word)-major order —
 as an equality oracle over randomized CSRs.
 
-Measured round 2 (experiments/FINDINGS.md): at 1M docs / 48M postings the
-global-argsort variant is ~5x SLOWER on host (10.7 s vs 52.6 s for both
-sections) — per-shard linear scans beat one big permutation — so the
-round-1 per-shard builder stays the production path and this variant lives
-here as the oracle.
+On the host, at 1M docs / 48M postings, the global-argsort variant was
+about 5x slower than the per-shard linear scans, so the per-shard builder
+stays the production path and this variant lives here as the oracle.
 """
 
 import numpy as np
